@@ -1,0 +1,17 @@
+"""mydetection_tpu_torch — the PyTorch/CUDA port of mydetection_tpu.
+
+The YOLOv3 detect path in PyTorch for an NVIDIA H100, with the JAX
+package's Pallas NMS kernel rewritten as a hand-written CUDA kernel
+(`kernels/csrc/nms.cu`, built with nvcc at its first launch). It
+imports nothing of JAX or of `mydetection_tpu`.
+
+Public surface:
+    Detector(model_name=..., weights_path=..., device=...)
+    Detector.detect_one / detect_batch / detect_imgSeq / detect_prepared
+    get_model(name) / list_models()
+"""
+
+from mydetection_tpu_torch.api import Detections, Detector
+from mydetection_tpu_torch.registry import get_model, list_models
+
+__all__ = ["Detections", "Detector", "get_model", "list_models"]

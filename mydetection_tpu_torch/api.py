@@ -1,0 +1,252 @@
+"""User-facing Detector API: build-by-name → detect on images.
+
+A port of `mydetection_tpu/api.py` for the YOLOv3 family:
+
+  host:   image load + letterbox (PIL, bilinear)
+  device: normalize → Darknet-53 → neck + heads → f32 single-label
+          decode → conf gate → top-k → class-offset greedy NMS (one
+          CUDA kernel launch for the whole batch) → max_dets rows + mask
+  host:   strip invalid rows, inverse-letterbox to original pixels.
+
+The device is explicit: `Detector(..., device=None)` means "cuda" and
+raises when no GPU is present; pass `device="cpu"` to run on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from mydetection_tpu_torch import checkpoint as ckpt_lib
+from mydetection_tpu_torch.convert import from_jax_params
+from mydetection_tpu_torch.models.layers import init_weights
+from mydetection_tpu_torch.ops.nms import postprocess
+from mydetection_tpu_torch.registry import (
+    check_input_size,
+    forward_dense,
+    get_model,
+)
+from mydetection_tpu_torch.utils.image_ops import (
+    LetterboxInfo,
+    boxes_xyxy_to_original,
+    letterbox_pil,
+)
+
+
+@dataclasses.dataclass
+class Detections:
+    """Final detections for one image, in ORIGINAL image pixel coords.
+
+    boxes_xyxy: (K, 4) float32 axis-aligned corners (K = 0 is fine).
+    scores:     (K,) float32, descending.
+    classes:    (K,) int32 contiguous class ids.
+    """
+
+    boxes_xyxy: np.ndarray
+    scores: np.ndarray
+    classes: np.ndarray
+
+    def __len__(self) -> int:
+        return int(self.scores.shape[0])
+
+    def as_array(self) -> np.ndarray:
+        """Reference-style rows (x1, y1, x2, y2, score, cls)."""
+        return np.concatenate(
+            [self.boxes_xyxy, self.scores[:, None],
+             self.classes[:, None].astype(np.float32)], axis=1)
+
+    def to_coco(self, image_id: int,
+                category_map: Sequence[int] | None = None) -> list[dict]:
+        """COCO results-JSON rows (bbox xywh top-left) for evaluation."""
+        out = []
+        for box, score, cls in zip(self.boxes_xyxy, self.scores, self.classes):
+            x1, y1, x2, y2 = (float(v) for v in box)
+            cat = int(cls) if category_map is None else int(category_map[int(cls)])
+            out.append({"image_id": int(image_id), "category_id": cat,
+                        "bbox": [x1, y1, x2 - x1, y2 - y1],
+                        "score": float(score)})
+        return out
+
+
+def load_image_any(im):
+    """Path / PIL image / uint8 HWC ndarray → PIL image."""
+    from PIL import Image
+
+    if isinstance(im, str):
+        return Image.open(im)
+    if isinstance(im, np.ndarray):
+        return Image.fromarray(im)
+    if isinstance(im, Image.Image):
+        return im
+    raise TypeError(f"expected an image path, PIL image or ndarray, got "
+                    f"{type(im).__name__}")
+
+
+def strip_detections(out: dict, i: int, info: LetterboxInfo, *,
+                     rotated: bool = False) -> Detections:
+    """Padded host output row `i` → `Detections` in original pixels."""
+    if rotated:
+        raise NotImplementedError("rotated detections arrive with the RAPiD "
+                                  "slice of the port")
+    valid = out["valid"][i]
+    scores = out["scores"][i][valid].astype(np.float32)
+    classes = out["classes"][i][valid].astype(np.int32)
+    boxes = out["boxes"][i][valid].astype(np.float32)
+    return Detections(boxes_xyxy=boxes_xyxy_to_original(boxes, info),
+                      scores=scores, classes=classes)
+
+
+def make_post(cfg):
+    """Dense batch → padded detections for a model config: the JAX
+    package's `make_post_one`, with the batch axis written out in place
+    of its vmap, so NMS launches once per batch."""
+
+    def post(dense: dict, conf_thres: torch.Tensor, nms_iou: float) -> dict:
+        return postprocess(dense["boxes"], dense["scores"], dense["classes"],
+                           conf_thres=conf_thres, iou_thres=nms_iou,
+                           pre_nms=cfg.pre_nms, max_dets=cfg.max_dets,
+                           multi_label=cfg.multi_label)
+
+    return post
+
+
+def _conf_vector(conf_thres, n_real: int, b: int) -> np.ndarray:
+    """One float for the batch, or one per real image; padding rows
+    (b > n_real) reuse the last value, their outputs are dropped."""
+    if np.ndim(conf_thres) == 0:
+        return np.full((b,), conf_thres, np.float32)
+    cv = np.asarray(conf_thres, np.float32)
+    if len(cv) != n_real:
+        raise ValueError(f"per-image conf_thres has {len(cv)} entries for "
+                         f"{n_real} images")
+    return np.concatenate([cv, np.repeat(cv[-1:], b - len(cv))])
+
+
+class Detector:
+    """Build a detector by name and run inference.
+
+    Example:
+        det = Detector(model_name='yolov3', weights_path='weights/x.npz')
+        detections = det.detect_one(img_path='dog.jpg', conf_thres=0.3)
+
+    `params` takes a JAX parameter tree, nested or flattened with
+    `checkpoint.flatten_tree`; `weights_path` an `.npz` checkpoint; with
+    neither, the weights come from `init_weights(model, rng_seed)`.
+    """
+
+    def __init__(self, model_name: str = "yolov3",
+                 weights_path: str | None = None, *, params=None,
+                 rng_seed: int = 0, device: str | torch.device | None = None,
+                 **config_overrides):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Detector runs on CUDA by default and no GPU "
+                               "is visible; pass device='cpu' to run on the "
+                               "CPU")
+        self.device = device
+        self.model = get_model(model_name, **config_overrides)
+        self.cfg = self.model.config
+        if params is not None:
+            if any(isinstance(v, dict) for v in params.values()):
+                params = ckpt_lib.flatten_tree(params)
+            self.model.load_state_dict(from_jax_params(params), strict=True)
+        elif weights_path is not None:
+            self.model.load_state_dict(self._load_weights(weights_path),
+                                       strict=True)
+        else:
+            init_weights(self.model, rng_seed)
+        self.model.eval().requires_grad_(False).to(device)
+        if device.type == "cuda":  # cuDNN's NHWC convs; inputs arrive NHWC
+            self.model.to(memory_format=torch.channels_last)
+        self._post = make_post(self.cfg)
+
+    def _load_weights(self, path: str) -> dict:
+        if not path.lower().endswith(".npz"):
+            raise ValueError(
+                f"the port loads .npz checkpoints (the JAX package's "
+                f"format); darknet .weights and torch .pt importers arrive "
+                f"with a later slice — got {path}")
+        return from_jax_params(ckpt_lib.flatten_tree(
+            ckpt_lib.load_params(path)))
+
+    def _run_batch(self, canvases, conf_thres, nms_iou: float,
+                   n_real: int) -> dict:
+        """uint8 (B, S, S, 3) canvases (numpy, or a tensor on any
+        device) → padded detections as host numpy arrays."""
+        images = torch.as_tensor(canvases).to(self.device)
+        if images.dtype != torch.uint8 or images.dim() != 4 \
+                or images.shape[-1] != 3:
+            raise ValueError(f"expected uint8 (B, S, S, 3) canvases, got "
+                             f"{tuple(images.shape)} {images.dtype}")
+        check_input_size(int(images.shape[1]))
+        conf = torch.from_numpy(
+            _conf_vector(conf_thres, n_real, images.shape[0])).to(self.device)
+        with torch.inference_mode():
+            out = self._post(forward_dense(self.model, images), conf,
+                             float(nms_iou))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _strip(self, out: dict, i: int, info: LetterboxInfo) -> Detections:
+        return strip_detections(out, i, info, rotated=self.cfg.rotated)
+
+    # -- public surface ----------------------------------------------------
+
+    def warmup(self, *, input_sizes: Sequence[int] | None = None,
+               batch_size: int = 1) -> None:
+        """Run one zero batch per input size, so the first request does
+        not pay for cuDNN autotuning or the NMS kernel's build."""
+        for s in input_sizes or [self.cfg.input_size]:
+            check_input_size(s)
+            canvas = np.zeros((batch_size, s, s, 3), np.uint8)
+            self._run_batch(canvas, self.cfg.conf_thres, self.cfg.nms_iou,
+                            batch_size)
+
+    def detect_one(self, *, img_path=None, pil_img=None, np_img=None,
+                   conf_thres: float | None = None,
+                   nms_iou: float | None = None,
+                   input_size: int | None = None) -> Detections:
+        """Detect objects on one image (a path, PIL image or ndarray)."""
+        src = next((x for x in (img_path, pil_img, np_img) if x is not None),
+                   None)
+        if src is None:
+            raise ValueError("provide one of img_path / pil_img / np_img")
+        return self.detect_batch([src], conf_thres=conf_thres,
+                                 nms_iou=nms_iou, input_size=input_size)[0]
+
+    def detect_batch(self, images: Iterable, *,
+                     conf_thres: float | None = None,
+                     nms_iou: float | None = None,
+                     input_size: int | None = None) -> list[Detections]:
+        """Batched detection over an iterable of paths / PIL / ndarray."""
+        size = input_size or self.cfg.input_size
+        check_input_size(size)
+        conf = conf_thres if conf_thres is not None else self.cfg.conf_thres
+        iou = nms_iou if nms_iou is not None else self.cfg.nms_iou
+        canvases, infos = [], []
+        for im in images:
+            canvas, info = letterbox_pil(load_image_any(im), size)
+            canvases.append(canvas)
+            infos.append(info)
+        if not canvases:
+            return []
+        out = self._run_batch(np.stack(canvases), conf, iou, len(infos))
+        return [self._strip(out, i, info) for i, info in enumerate(infos)]
+
+    # reference-name alias (detect_imgSeq in myDetection's api.py)
+    def detect_imgSeq(self, img_paths: Sequence[str], **kw) -> list[Detections]:
+        return self.detect_batch(list(img_paths), **kw)
+
+    def detect_prepared(self, canvases, infos: Sequence[LetterboxInfo], *,
+                        conf_thres=None,
+                        nms_iou: float | None = None) -> list[Detections]:
+        """Detect on already-letterboxed uint8 canvases (B, S, S, 3),
+        numpy or a tensor already on the device; only the first
+        len(infos) rows are real. conf_thres: one float, or one per
+        image (len == len(infos))."""
+        conf = conf_thres if conf_thres is not None else self.cfg.conf_thres
+        iou = nms_iou if nms_iou is not None else self.cfg.nms_iou
+        out = self._run_batch(canvases, conf, iou, len(infos))
+        return [self._strip(out, i, info) for i, info in enumerate(infos)]

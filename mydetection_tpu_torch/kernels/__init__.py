@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+Every wrapper here counts its launches in a `launches` attribute;
+`KERNELS` lists them so a run can reset and read every count.
+"""
+
+from mydetection_tpu_torch.kernels.nms import nms_keep
+
+KERNELS = (nms_keep,)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

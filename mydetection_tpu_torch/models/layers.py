@@ -1,0 +1,109 @@
+"""Conv / batch-norm / activation building blocks (NCHW modules).
+
+A port of `mydetection_tpu/models/layers.py` that keeps its arithmetic:
+
+  * convs pad symmetrically by (k-1)//2 at every stride — never
+    `padding="same"`, which pads a stride-2 conv on an even input
+    asymmetrically and shifts every downsampled map by one pixel;
+  * eval BatchNorm is the fold `scale·rsqrt(var+1e-5)`, `bias-mean·scale`,
+    then `x*scale + shift` in the activation dtype;
+  * LeakyReLU is `where(x >= 0, x, 0.1x)`;
+  * params are stored float32 and cast to the compute dtype at the conv.
+
+Activations are NCHW here (the JAX package is NHWC); the model's input
+and its raw head outputs keep JAX's NHWC layout (`models/yolov3.py`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LEAKY_SLOPE = 0.1
+BN_EPS = 1e-5
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
+    """NCHW x OIHW conv with symmetric (k-1)//2 padding per side; the
+    weight is cast to the activation dtype."""
+    ph, pw = (w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(ph, pw))
+
+
+def bn_fold(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+            var: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm as one float32 (scale, shift) pair per channel."""
+    s = scale * torch.rsqrt(var + BN_EPS)
+    return s, bias - mean * s
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor,
+               shift: torch.Tensor) -> torch.Tensor:
+    """x*scale + shift over the channel axis 1, in x's dtype."""
+    return (x * scale.to(x.dtype)[:, None, None]
+            + shift.to(x.dtype)[:, None, None])
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, LEAKY_SLOPE * x)
+
+
+def normalize_input(images_u8: torch.Tensor,
+                    compute_dtype=torch.float32) -> torch.Tensor:
+    """uint8 → [0, 1] by a division by 255 in the compute dtype."""
+    return images_u8.to(compute_dtype) / torch.tensor(
+        255.0, dtype=compute_dtype, device=images_u8.device)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of an NCHW map (an exact copy)."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm keyed like the JAX tree: `scale`, `bias`
+    (learnable) and the running `mean`, `var`."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(x, *bn_fold(self.scale, self.bias, self.mean,
+                                      self.var))
+
+
+class ConvBNLeaky(nn.Module):
+    """Conv → BN → LeakyReLU(0.1), the Darknet building block."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.Conv2d(c_in, c_out, ksize, bias=False)
+        self.bn = BatchNorm(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.bn(conv2d(x, self.conv.weight,
+                                         stride=self.stride)))
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int) -> None:
+    """He-normal conv weights (std sqrt(2/fan_in)), the JAX package's
+    init distribution, drawn from a numpy RandomState; conv biases are
+    zero and BatchNorms stay at their identity values. The bits differ
+    from the JAX init of the same seed: parity runs load JAX weights."""
+    rng = np.random.RandomState(seed)
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            w = rng.standard_normal(m.weight.shape).astype(np.float32)
+            m.weight.copy_(torch.from_numpy(
+                w * np.float32(np.sqrt(2.0 / fan_in))))
+            if m.bias is not None:
+                m.bias.zero_()

@@ -1,0 +1,141 @@
+"""Model factory: string name → model module (the build-by-name surface).
+
+A port of `mydetection_tpu/registry.py` for the YOLOv3 family:
+`ModelConfig` keeps the JAX package's fields, `get_model` builds the
+`nn.Module` with the config on its `config` attribute, and
+`forward_dense` is the decode glue (raw heads → dense xyxy boxes,
+scores and classes). Further families register with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from mydetection_tpu_torch.models import yolov3
+from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_classes: int = 80
+    input_size: int = 416
+    conf_thres: float = 0.005
+    nms_iou: float = 0.45
+    pre_nms: int = 1024
+    max_dets: int = 100
+    rotated: bool = False
+    # multi_label: every (box, class) pair above conf (RetinaNet/FCOS);
+    # False = per-box best class only (the YOLO decode idiom)
+    multi_label: bool = True
+    compute_dtype: Any = torch.bfloat16  # conv compute; decode is always f32
+    class_names: tuple[str, ...] | None = None
+    # FCOS ltrb decode, "exp" or "linear" (FCOS slice)
+    ltrb_decode: str = "exp"
+    # anchor table override for the darknet families: 3 levels (P5→P3)
+    # of 3 (w, h) pairs in input pixels; None = the family default
+    anchors: tuple | None = None
+    # the JAX package's TPU approximate pre-NMS top-k; accepted and
+    # ignored, the port's top-k is exact everywhere
+    approx_topk: bool = True
+    # fused GN in GN-tower heads (FCOS slice)
+    fused_gn: bool | None = None
+
+
+_REGISTRY: dict[str, Callable[[ModelConfig], nn.Module]] = {}
+_CONFIGS: dict[str, ModelConfig] = {}
+
+
+def register(name: str, config: ModelConfig):
+    def deco(build_fn: Callable[[ModelConfig], nn.Module]):
+        _REGISTRY[name] = build_fn
+        _CONFIGS[name] = config
+        return build_fn
+    return deco
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def default_config(name: str) -> ModelConfig:
+    """The registered (pre-override) config for `name`."""
+    if name not in _CONFIGS:
+        raise KeyError(f"unknown model '{name}'; available: {list_models()}")
+    return _CONFIGS[name]
+
+
+def get_model(name: str, **overrides) -> nn.Module:
+    """Build a model by name; keyword overrides patch the registered
+    config (e.g. `get_model('yolov3', compute_dtype=torch.float32)`).
+    The module's weights are torch's defaults until loaded or set by
+    `models.layers.init_weights`."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model '{name}'; available: {list_models()}")
+    cfg = dataclasses.replace(_CONFIGS[name], **overrides)
+    check_input_size(cfg.input_size)
+    if cfg.anchors is not None:
+        check_anchor_table(cfg.anchors, cfg.family)
+    model = _REGISTRY[name](cfg)
+    model.config = cfg
+    return model
+
+
+def check_anchor_table(anchors, family: str) -> None:
+    """Reject anchor tables the darknet heads can't consume: exactly 3
+    levels of 3 positive (w, h) pairs."""
+    if family not in ("yolov3", "rapid"):
+        raise ValueError(f"anchors override is only meaningful for the "
+                         f"darknet families (yolov3/rapid), not {family}")
+    ok = (isinstance(anchors, (tuple, list)) and len(anchors) == 3
+          and all(len(lvl) == 3 for lvl in anchors)
+          and all(len(a) == 2 and float(a[0]) > 0 and float(a[1]) > 0
+                  for lvl in anchors for a in lvl))
+    if not ok:
+        raise ValueError("anchors must be 3 levels (P5→P3) × 3 (w, h) "
+                         f"pairs with positive sizes; got {anchors!r}")
+
+
+def check_input_size(size: int) -> None:
+    """Reject sizes the feature pyramid can't tile: the backbone
+    downsamples by 32 and the neck re-merges levels with exact 2x
+    upsampling."""
+    if size < 32 or size % 32 != 0:
+        raise ValueError(
+            f"input_size must be a positive multiple of 32, got {size} "
+            "(the backbone downsamples by 32 and the neck re-merges "
+            "levels with exact 2x upsampling)")
+
+
+def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
+    """uint8 NHWC batch → dense single-label predictions: boxes
+    (B, N, 4) xyxy, scores (B, N), classes (B, N), all from the f32
+    decode."""
+    cfg = model.config
+    anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
+    decoded = yolov3.decode_single_label(model(images), cfg.num_classes,
+                                         anchors=anchors)
+    return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
+            "scores": decoded["scores"],
+            "classes": decoded["classes"]}
+
+
+def _build_yolov3(cfg: ModelConfig) -> nn.Module:
+    if cfg.multi_label:
+        raise NotImplementedError(
+            "multi-label YOLOv3 decode arrives with the RetinaNet slice of "
+            "the port; yolov3 is registered single-label")
+    return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype)
+
+
+register("yolov3", ModelConfig(name="yolov3", family="yolov3",
+                               num_classes=80, input_size=416,
+                               multi_label=False))(_build_yolov3)
+register("yolov3_608", ModelConfig(name="yolov3_608", family="yolov3",
+                                   num_classes=80, input_size=608,
+                                   multi_label=False))(_build_yolov3)
