@@ -1,8 +1,9 @@
 """mydetection_tpu_torch — the PyTorch/CUDA port of mydetection_tpu.
 
-The YOLOv3 detect path in PyTorch for an NVIDIA H100, with the JAX
-package's Pallas NMS kernel rewritten as a hand-written CUDA kernel
-(`kernels/csrc/nms.cu`, built with nvcc at its first launch). It
+The YOLOv3 and FCOS detect paths in PyTorch for an NVIDIA H100, with
+the JAX package's Pallas NMS and fused bias+GroupNorm+ReLU kernels
+rewritten as hand-written CUDA kernels (`kernels/csrc/nms.cu`,
+`kernels/csrc/gn.cu`, built with nvcc at their first launch). It
 imports nothing of JAX or of `mydetection_tpu`.
 
 Public surface:

@@ -1,11 +1,16 @@
 """User-facing Detector API: build-by-name → detect on images.
 
-A port of `mydetection_tpu/api.py` for the YOLOv3 family:
+A port of `mydetection_tpu/api.py` for the YOLOv3 and FCOS families:
 
   host:   image load + letterbox (PIL, bilinear)
-  device: normalize → Darknet-53 → neck + heads → f32 single-label
-          decode → conf gate → top-k → class-offset greedy NMS (one
-          CUDA kernel launch for the whole batch) → max_dets rows + mask
+  device: the model's dense forward (`registry.forward_dense`) — yolov3:
+          normalize → Darknet-53 → neck + heads → f32 single-label
+          decode; fcos: ImageNet standardize → ResNet-50 → FPN → GN
+          towers (40 launches of the CUDA bias+GN+ReLU kernel) → heads →
+          box decode, class logits kept for the postprocess —
+          then the postprocess: top-k (two stages on multi-label
+          configs) → class-offset greedy NMS (one CUDA kernel launch
+          for the whole batch) → max_dets rows + mask
   host:   strip invalid rows, inverse-letterbox to original pixels.
 
 The device is explicit: `Detector(..., device=None)` means "cuda" and
@@ -105,7 +110,11 @@ def make_post(cfg):
     of its vmap, so NMS launches once per batch."""
 
     def post(dense: dict, conf_thres: torch.Tensor, nms_iou: float) -> dict:
-        return postprocess(dense["boxes"], dense["scores"], dense["classes"],
+        return postprocess(dense["boxes"], dense.get("scores"),
+                           dense.get("classes"),
+                           score_logits=dense.get("score_logits"),
+                           score_mul=dense.get("score_mul"),
+                           gate_logits=dense.get("score_gate"),
                            conf_thres=conf_thres, iou_thres=nms_iou,
                            pre_nms=cfg.pre_nms, max_dets=cfg.max_dets,
                            multi_label=cfg.multi_label)
@@ -197,7 +206,7 @@ class Detector:
     def warmup(self, *, input_sizes: Sequence[int] | None = None,
                batch_size: int = 1) -> None:
         """Run one zero batch per input size, so the first request does
-        not pay for cuDNN autotuning or the NMS kernel's build."""
+        not pay for cuDNN autotuning or the kernels' builds."""
         for s in input_sizes or [self.cfg.input_size]:
             check_input_size(s)
             canvas = np.zeros((batch_size, s, s, 3), np.uint8)

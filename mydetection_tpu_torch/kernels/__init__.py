@@ -4,9 +4,10 @@ Every wrapper here counts its launches in a `launches` attribute;
 `KERNELS` lists them so a run can reset and read every count.
 """
 
+from mydetection_tpu_torch.kernels.gn import bias_gn_relu
 from mydetection_tpu_torch.kernels.nms import nms_keep
 
-KERNELS = (nms_keep,)
+KERNELS = (nms_keep, bias_gn_relu)
 
 
 def reset_launches() -> None:

@@ -19,8 +19,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -fmad=false and no --use_fast_math: the NMS IoU must round exactly
-# like the float32 plain version (no FMA contraction, IEEE division)
+# -fmad=false and no --use_fast_math: the NMS IoU and the GroupNorm
+# arithmetic must round like the float32 plain versions (no FMA
+# contraction, IEEE division and square root)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

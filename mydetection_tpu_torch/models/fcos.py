@@ -1,0 +1,189 @@
+"""FCOS: ResNet-50 + FPN P3–P7 + two GroupNorm conv towers (inference).
+
+A port of `mydetection_tpu/models/fcos.py` (`generate_locations`,
+`group_norm`, `_tower`, `_head_conv`, `apply`, `decode_boxes`,
+`decode`) and of the registry's `_build_fcos`. Each tower conv runs
+without its bias; the bias, the GroupNorm and the ReLU after it are one
+call of `kernels.gn.bias_gn_relu` (the CUDA kernel on the card, its
+plain version on the CPU), as the JAX package's fused branch does: 8
+calls per level, 40 per forward.
+
+The heads run NCHW (channels_last on the card); each output is permuted
+to NHWC before it is flattened, so locations come out level-major, then
+h·w row-major, as in the JAX concat. Class logits (and the per-level
+max-over-classes gate) stay in the compute dtype; ltrb and centerness
+are float32.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from mydetection_tpu_torch.kernels.gn import bias_gn_relu
+from mydetection_tpu_torch.models.fpn import FPN, conv_bias
+from mydetection_tpu_torch.models.layers import conv2d
+from mydetection_tpu_torch.models.resnet import ResNet, prepare_input
+
+STRIDES = (8, 16, 32, 64, 128)
+PRIOR_PROB = 0.01
+GN_GROUPS = 32
+HEAD_INIT_STD = 0.01  # N(0, 0.01) tower and out convs (torchvision's head)
+
+
+def level_shapes(input_size: int) -> list[tuple[int, int]]:
+    return [(math.ceil(input_size / s), math.ceil(input_size / s))
+            for s in STRIDES]
+
+
+@functools.lru_cache(maxsize=16)
+def _locations_np(input_size: int) -> tuple[np.ndarray, np.ndarray]:
+    locs, strides = [], []
+    for stride, (h, w) in zip(STRIDES, level_shapes(input_size)):
+        gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+        locs.append(np.stack([gx * stride, gy * stride], -1).reshape(-1, 2))
+        strides.append(np.full((h * w,), stride, np.float32))
+    return np.concatenate(locs), np.concatenate(strides)
+
+
+def generate_locations(input_size: int, device=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All pyramid locations: ((N, 2) xy pixels, (N,) stride), at
+    grid·stride (torchvision's convention)."""
+    locs, strides = _locations_np(input_size)
+    return (torch.tensor(locs, device=device),
+            torch.tensor(strides, device=device))
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+               groups: int = GN_GROUPS) -> torch.Tensor:
+    """The JAX package's unfused GroupNorm (two-pass variance) over an
+    NCHW tensor, float32 statistics, output in x's dtype. The tests'
+    oracle; the model runs `bias_gn_relu`."""
+    b, c, h, w = x.shape
+    xf = x.float().reshape(b, groups, c // groups, h, w)
+    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+    var = xf.var(dim=(2, 3, 4), keepdim=True, unbiased=False)
+    xf = ((xf - mean) * torch.rsqrt(var + 1e-5)).reshape(b, c, h, w)
+    return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm affine parameters keyed like the JAX tree."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+
+def _head_conv(c_in: int, c_out: int, bias: float = 0.0) -> nn.Conv2d:
+    conv = nn.Conv2d(c_in, c_out, 3, bias=True)
+    conv.init_std = HEAD_INIT_STD
+    conv.init_bias = bias
+    return conv
+
+
+class Tower(nn.Module):
+    """4 × (3x3 conv → bias + GroupNorm(32) + ReLU)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        for i in range(4):
+            self.add_module(f"conv{i}", _head_conv(channels, channels))
+            self.add_module(f"gn{i}", GroupNorm(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(4):
+            conv, gn = getattr(self, f"conv{i}"), getattr(self, f"gn{i}")
+            x = bias_gn_relu(conv2d(x, conv.weight), conv.bias, gn.scale,
+                             gn.bias, groups=GN_GROUPS)
+        return x
+
+
+def _flat(y: torch.Tensor) -> torch.Tensor:
+    """NCHW head output → (B, H·W, C), locations row-major."""
+    b, c, h, w = y.shape
+    return y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+class FCOSHead(nn.Module):
+    def __init__(self, num_classes: int = 80, channels: int = 256):
+        super().__init__()
+        self.num_classes = num_classes
+        self.cls_tower = Tower(channels)
+        self.box_tower = Tower(channels)
+        self.cls_out = _head_conv(channels, num_classes,
+                                  -math.log((1 - PRIOR_PROB) / PRIOR_PROB))
+        self.box_out = _head_conv(channels, 4)
+        self.ctr_out = _head_conv(channels, 1)
+        self.scales = nn.Parameter(torch.ones(len(STRIDES)))
+
+    def forward(self, pyramid, *, ltrb_decode: str = "exp",
+                with_gate: bool = False) -> tuple[torch.Tensor, ...]:
+        """[P3..P7] NCHW → (cls (B, N, C) compute dtype, ltrb (B, N, 4)
+        f32 pixel distances, ctr (B, N) f32 logits[, gate (B, N) compute
+        dtype: the max-over-classes logit, per level])."""
+        if ltrb_decode not in ("exp", "linear"):
+            raise ValueError(f"ltrb_decode must be 'exp' or 'linear', got "
+                             f"{ltrb_decode!r}")
+        cls_f, box_f, ctr_f, gate_f = [], [], [], []
+        for li, feat in enumerate(pyramid):
+            ct = self.cls_tower(feat)
+            bt = self.box_tower(feat)
+            cls = _flat(conv_bias(self.cls_out, ct))
+            raw_box = _flat(conv_bias(self.box_out, bt)).float()
+            ctr = _flat(conv_bias(self.ctr_out, bt)).float()
+            if ltrb_decode == "exp":
+                ltrb = torch.exp(torch.clamp(raw_box * self.scales[li],
+                                             -10.0, 10.0))
+            else:
+                ltrb = torch.relu(raw_box)
+            cls_f.append(cls)
+            if with_gate:
+                gate_f.append(torch.amax(cls, dim=-1))
+            box_f.append(ltrb * float(STRIDES[li]))
+            ctr_f.append(ctr[..., 0])
+        out = (torch.cat(cls_f, 1), torch.cat(box_f, 1), torch.cat(ctr_f, 1))
+        return out + (torch.cat(gate_f, 1),) if with_gate else out
+
+
+class FCOS(nn.Module):
+    """ResNet-50 + FPN + FCOS head: uint8 NHWC images → raw heads."""
+
+    def __init__(self, num_classes: int = 80,
+                 compute_dtype: torch.dtype = torch.bfloat16, *,
+                 ltrb_decode: str = "exp", with_gate: bool = True):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.ltrb_decode = ltrb_decode
+        self.with_gate = with_gate
+        self.backbone = ResNet(50)
+        self.fpn = FPN()
+        self.head = FCOSHead(num_classes)
+
+    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        x = prepare_input(images.permute(0, 3, 1, 2), self.compute_dtype)
+        return self.head(self.fpn(self.backbone(x)),
+                         ltrb_decode=self.ltrb_decode,
+                         with_gate=self.with_gate)
+
+
+def decode_boxes(ltrb: torch.Tensor, locations: torch.Tensor) -> torch.Tensor:
+    """ltrb pixel distances (B, N, 4) + locations (N, 2) → (B, N, 4) xyxy."""
+    xy = locations[None]
+    return torch.cat([xy - ltrb[..., 0:2], xy + ltrb[..., 2:4]], dim=-1)
+
+
+def decode(cls_logits: torch.Tensor, ltrb: torch.Tensor,
+           ctr_logits: torch.Tensor, locations: torch.Tensor) -> dict:
+    """Dense detections with materialized scores sigmoid(cls)·
+    sigmoid(ctr): {"boxes": (B, N, 4) xyxy, "scores": (B, N, C) f32}.
+    The detect path hands logits to the postprocess instead."""
+    scores = (torch.sigmoid(cls_logits.float())
+              * torch.sigmoid(ctr_logits)[..., None])
+    return {"boxes": decode_boxes(ltrb, locations), "scores": scores}

@@ -8,6 +8,9 @@ A port of `mydetection_tpu/models/layers.py` that keeps its arithmetic:
   * eval BatchNorm is the fold `scale·rsqrt(var+1e-5)`, `bias-mean·scale`,
     then `x*scale + shift` in the activation dtype;
   * LeakyReLU is `where(x >= 0, x, 0.1x)`;
+  * max pooling pads symmetrically with -inf (torch's MaxPool2d);
+  * the ResNet input is `x/255`, then `(x - mean) / std` with ImageNet's
+    mean and std, both in the compute dtype;
   * params are stored float32 and cast to the compute dtype at the conv.
 
 Activations are NCHW here (the JAX package is NHWC); the model's input
@@ -23,6 +26,8 @@ from torch import nn
 
 LEAKY_SLOPE = 0.1
 BN_EPS = 1e-5
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
@@ -57,6 +62,19 @@ def normalize_input(images_u8: torch.Tensor,
         255.0, dtype=compute_dtype, device=images_u8.device)
 
 
+def standardize_imagenet(x01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] RGB (NCHW) → ImageNet-standardized, in x01's dtype."""
+    kw = dict(dtype=x01.dtype, device=x01.device)
+    mean = torch.tensor(IMAGENET_MEAN, **kw)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, **kw)[:, None, None]
+    return (x01 - mean) / std
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Max pool with a symmetric (window-1)//2 pad of -inf per side."""
+    return F.max_pool2d(x, window, stride, padding=(window - 1) // 2)
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of an NCHW map (an exact copy)."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -78,6 +96,22 @@ class BatchNorm(nn.Module):
                                       self.var))
 
 
+class ConvBN(nn.Module):
+    """Conv → BN, then ReLU when `relu` (the ResNet building block)."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, stride: int = 1,
+                 *, relu: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.relu = relu
+        self.conv = nn.Conv2d(c_in, c_out, ksize, bias=False)
+        self.bn = BatchNorm(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn(conv2d(x, self.conv.weight, stride=self.stride))
+        return torch.relu(y) if self.relu else y
+
+
 class ConvBNLeaky(nn.Module):
     """Conv → BN → LeakyReLU(0.1), the Darknet building block."""
 
@@ -94,16 +128,20 @@ class ConvBNLeaky(nn.Module):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int) -> None:
-    """He-normal conv weights (std sqrt(2/fan_in)), the JAX package's
-    init distribution, drawn from a numpy RandomState; conv biases are
-    zero and BatchNorms stay at their identity values. The bits differ
-    from the JAX init of the same seed: parity runs load JAX weights."""
+    """The JAX package's init distributions, drawn from a numpy
+    RandomState in module order: conv weights He-normal (std
+    sqrt(2/fan_in)) unless the conv carries an `init_std` (a fixed
+    gaussian std, as detection heads use); conv biases zero unless it
+    carries an `init_bias`. BatchNorms, GroupNorms and other parameters
+    keep the values their modules were built with. The bits differ from
+    the JAX init of the same seed: parity runs load JAX weights."""
     rng = np.random.RandomState(seed)
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
+            std = getattr(m, "init_std", None)
+            if std is None:
+                std = np.sqrt(2.0 / m.weight[0].numel())
             w = rng.standard_normal(m.weight.shape).astype(np.float32)
-            m.weight.copy_(torch.from_numpy(
-                w * np.float32(np.sqrt(2.0 / fan_in))))
+            m.weight.copy_(torch.from_numpy(w * np.float32(std)))
             if m.bias is not None:
-                m.bias.zero_()
+                m.bias.fill_(getattr(m, "init_bias", 0.0))

@@ -1,0 +1,82 @@
+"""ResNet-50/101 backbone, standard path (NCHW).
+
+A port of `mydetection_tpu/models/resnet.py` (`apply` with the plain
+stem, no block scan, and `prepare_input`'s non-folded branch): a 7x7
+stride-2 conv-BN-ReLU stem and a 3x3 stride-2 max pool, then four
+stages of bottleneck blocks (1x1 → 3x3 → 1x1, torchvision's v1.5 with
+the stride on the 3x3), block 0 of each stage carrying the projection
+shortcut. Returns C3/C4/C5 (512/1024/2048 channels, strides 8/16/32).
+The JAX package's stem folds (standardize, space-to-depth) and its
+block scan are TPU layout devices with the same math, so they are not
+ported. Module names follow the JAX tree (`stem.conv`,
+`stage0.block0.down.bn`, ...) so `convert.from_jax_params` maps 1:1.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mydetection_tpu_torch.models.layers import (
+    ConvBN,
+    max_pool,
+    normalize_input,
+    standardize_imagenet,
+)
+
+STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+STAGE_CHANNELS = (256, 512, 1024, 2048)  # bottleneck output channels
+
+
+def prepare_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """uint8 (or float) NCHW batch → ImageNet-standardized compute dtype:
+    uint8 is divided by 255 first, a float batch is taken as [0, 1]."""
+    if x.dtype == torch.uint8:
+        return standardize_imagenet(normalize_input(x, compute_dtype))
+    return standardize_imagenet(x.to(compute_dtype))
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c_in: int, c_out: int, stride: int, downsample: bool):
+        super().__init__()
+        c_mid = c_out // 4
+        self.conv1 = ConvBN(c_in, c_mid, 1)
+        self.conv2 = ConvBN(c_mid, c_mid, 3, stride)
+        self.conv3 = ConvBN(c_mid, c_out, 1, relu=False)
+        self.down = (ConvBN(c_in, c_out, 1, stride, relu=False)
+                     if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x)))
+        sc = x if self.down is None else self.down(x)
+        return torch.relu(y + sc)
+
+
+class ResNet(nn.Module):
+    def __init__(self, depth: int = 50):
+        super().__init__()
+        if depth not in STAGE_BLOCKS:
+            raise ValueError(f"unsupported ResNet depth {depth}")
+        self.stem = ConvBN(3, 64, 7, 2)
+        c_in = 64
+        for si, nblocks in enumerate(STAGE_BLOCKS[depth]):
+            c_out = STAGE_CHANNELS[si]
+            stage = nn.Module()
+            for bi in range(nblocks):
+                stage.add_module(f"block{bi}", Bottleneck(
+                    c_in if bi == 0 else c_out, c_out,
+                    stride=2 if si > 0 and bi == 0 else 1,
+                    downsample=bi == 0))
+            self.add_module(f"stage{si}", stage)
+            c_in = c_out
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """x: standardized NCHW float batch → (C3, C4, C5)."""
+        y = max_pool(self.stem(x), 3, 2)
+        feats = []
+        for si in range(len(STAGE_CHANNELS)):
+            for block in getattr(self, f"stage{si}").children():
+                y = block(y)
+            if si >= 1:  # stages 1/2/3 emit C3/C4/C5
+                feats.append(y)
+        return tuple(feats)

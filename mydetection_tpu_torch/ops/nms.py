@@ -1,12 +1,18 @@
-"""Static-shape single-label postprocess and class-offset NMS, batched.
+"""Static-shape postprocess and class-offset NMS, batched.
 
-A port of the single-label branch of `mydetection_tpu/ops/nms.py`
-(`batched_class_nms_impl`, `postprocess_impl(multi_label=False)`,
-`_nms_and_select`), with the image axis written out where the JAX
-package vmaps one image at a time:
+A port of `mydetection_tpu/ops/nms.py` (`batched_class_nms_impl`,
+`postprocess_impl` on its pre-reduced single-label and its
+`score_logits` branches, `_multilabel_pairs`, `_nms_and_select`), with
+the image axis written out where the JAX package vmaps one image at a
+time:
 
-    conf gate → top-`pre_nms` → CLASS_OFFSET shift → greedy NMS
-    (one kernel launch for the batch) → top-`max_dets` rows + mask.
+    single-label: conf gate → top-`pre_nms` boxes
+    multi-label:  top-`pre_nms` boxes by their best class score →
+                  their (box, class) pairs, conf gate → top-`pre_nms`
+    then: CLASS_OFFSET shift → greedy NMS (one kernel launch for the
+    batch) → top-`max_dets` rows + mask.
+
+The dense (N, C) float `scores` input waits for the RetinaNet slice.
 
 Exactness rules kept from the JAX package: top-k is a stable descending
 sort (ties go to the lower index, as `jax.lax.top_k`), the class offset
@@ -41,35 +47,91 @@ def batched_class_nms(boxes: torch.Tensor, scores: torch.Tensor,
                     iou_thres)
 
 
-def postprocess(boxes: torch.Tensor, scores: torch.Tensor,
-                classes: torch.Tensor, *, conf_thres, iou_thres: float,
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[i, idx[i]] for every image i: (B, N, ...) by (B, K) → (B, K, ...)."""
+    idx = idx.reshape(*idx.shape, *([1] * (x.dim() - 2)))
+    return torch.gather(x, 1, idx.expand(-1, -1, *x.shape[2:]))
+
+
+def _top_k_padded(x: torch.Tensor, pre_nms: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-min(pre_nms, N) of (B, N), padded up to the static pre_nms
+    with NEG_INF scores at index 0."""
+    b, n = x.shape
+    k = min(pre_nms, n)
+    values, idx = top_k(x, k)
+    if k < pre_nms:
+        pad = pre_nms - k
+        values = torch.cat([values, values.new_full((b, pad), NEG_INF)], 1)
+        idx = torch.cat([idx, idx.new_zeros((b, pad))], 1)
+    return values, idx
+
+
+def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
+                classes: torch.Tensor | None = None, *, conf_thres,
+                iou_thres: float, score_logits: torch.Tensor | None = None,
+                score_mul: torch.Tensor | None = None,
+                gate_logits: torch.Tensor | None = None,
                 pre_nms: int = 1024, max_dets: int = 100,
                 multi_label: bool = False) -> dict[str, torch.Tensor]:
-    """Dense single-label predictions → padded detections per image.
+    """Dense predictions → padded detections per image.
 
-    boxes (B, N, 4) xyxy; scores (B, N) per-box best-class score;
-    classes (B, N); conf_thres a float or a (B,) float32 tensor.
-    Returns (B, max_dets, ...) boxes, scores, classes (-1 on padding)
-    and the bool valid mask.
+    boxes (B, N, 4) xyxy and either
+      * scores (B, N) per-box best-class scores with classes (B, N), or
+      * score_logits (B, N, C) class logits in their own dtype, with
+        optional score_mul (B, N), a per-box factor applied outside the
+        sigmoid (FCOS centerness), and gate_logits (B, N), each box's
+        max-over-classes logit when the head has it. The sigmoid runs
+        in float32 after the box top-k.
+    conf_thres is a float or a (B,) float32 tensor. Returns (B,
+    max_dets, ...) boxes, scores, classes (-1 on padding) and the bool
+    valid mask.
     """
-    if multi_label or scores.dim() != 2:
-        raise NotImplementedError(
-            "the multi-label postprocess arrives with the RetinaNet slice "
-            "of the port; this slice ports the single-label branch")
-    b, n = scores.shape
     conf = torch.as_tensor(conf_thres, dtype=torch.float32,
-                           device=scores.device).reshape(-1, 1)
+                           device=boxes.device).reshape(-1, 1)
+    if score_logits is not None:
+        if scores is not None:
+            raise ValueError("pass scores or score_logits, not both")
+        gmax = (gate_logits if gate_logits is not None
+                else torch.amax(score_logits, dim=-1))
+        box_max = torch.sigmoid(gmax.float())
+        if score_mul is not None:
+            box_max = box_max * score_mul
+        if multi_label:
+            return _multilabel_pairs(boxes, score_logits, score_mul, box_max,
+                                     conf, iou_thres=iou_thres,
+                                     pre_nms=pre_nms, max_dets=max_dets)
+        # best class per box: argmax is sigmoid-invariant
+        scores = box_max
+        classes = torch.argmax(score_logits, dim=-1)
+    elif multi_label or scores.dim() != 2:
+        raise NotImplementedError(
+            "the dense (N, C) scores postprocess arrives with the RetinaNet "
+            "slice of the port; pass per-box scores and classes, or "
+            "score_logits")
     gated = torch.where(scores >= conf, scores, NEG_INF)
-    k = min(pre_nms, n)
-    top_scores, box_idx = top_k(gated, k)
-    if k < pre_nms:  # pad up to the static pre_nms
-        pad = pre_nms - k
-        top_scores = torch.cat([top_scores, top_scores.new_full(
-            (b, pad), NEG_INF)], dim=1)
-        box_idx = torch.cat([box_idx, box_idx.new_zeros((b, pad))], dim=1)
+    top_scores, box_idx = _top_k_padded(gated, pre_nms)
     cls_idx = torch.gather(classes.to(torch.int32), 1, box_idx)
-    sel_boxes = torch.gather(boxes, 1, box_idx[..., None].expand(-1, -1, 4))
-    return nms_and_select(sel_boxes, top_scores, cls_idx,
+    return nms_and_select(_rows(boxes, box_idx), top_scores, cls_idx,
+                          iou_thres=iou_thres, max_dets=max_dets)
+
+
+def _multilabel_pairs(boxes, score_logits, score_mul, box_max, conf, *,
+                      iou_thres: float, pre_nms: int, max_dets: int) -> dict:
+    """Stage 1: the top-pre_nms boxes by their best score. Stage 2: the
+    top-pre_nms (box, class) pairs above conf among them, then NMS."""
+    c = score_logits.shape[-1]
+    _, box_sel = top_k(box_max, pre_nms)                      # (B, kb)
+    sel = torch.sigmoid(_rows(score_logits, box_sel).float())  # (B, kb, C)
+    if score_mul is not None:
+        sel = sel * torch.gather(score_mul, 1, box_sel)[..., None]
+    flat = sel.reshape(sel.shape[0], -1)
+    flat = torch.where(flat >= conf, flat, NEG_INF)
+    top_scores, top_idx = _top_k_padded(flat, pre_nms)
+    box_idx = torch.gather(box_sel, 1, torch.div(top_idx, c,
+                                                 rounding_mode="floor"))
+    cls_idx = (top_idx % c).to(torch.int32)
+    return nms_and_select(_rows(boxes, box_idx), top_scores, cls_idx,
                           iou_thres=iou_thres, max_dets=max_dets)
 
 
@@ -82,7 +144,7 @@ def nms_and_select(sel_boxes: torch.Tensor, top_scores: torch.Tensor,
     final_scores = torch.where(keep, top_scores, NEG_INF)
     out_scores, order = top_k(final_scores, max_dets)
     out_valid = out_scores > NEG_INF / 2
-    out_boxes = torch.gather(sel_boxes, 1, order[..., None].expand(-1, -1, 4))
+    out_boxes = _rows(sel_boxes, order)
     out_classes = torch.gather(cls_idx, 1, order)
     return {
         "boxes": torch.where(out_valid[..., None], out_boxes, 0.0),

@@ -1,10 +1,11 @@
 """Model factory: string name → model module (the build-by-name surface).
 
-A port of `mydetection_tpu/registry.py` for the YOLOv3 family:
-`ModelConfig` keeps the JAX package's fields, `get_model` builds the
-`nn.Module` with the config on its `config` attribute, and
-`forward_dense` is the decode glue (raw heads → dense xyxy boxes,
-scores and classes). Further families register with their slices.
+A port of `mydetection_tpu/registry.py` for the YOLOv3 and FCOS
+families: `ModelConfig` keeps the JAX package's fields, `get_model`
+builds the `nn.Module` with the config on its `config` attribute, and
+`forward_dense` is the decode glue of `dense_from_raw` (raw heads →
+dense xyxy boxes with scores and classes, or with class logits for the
+multi-label postprocess). Further families register with their slices.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.models import yolov3
+from mydetection_tpu_torch.models import fcos, yolov3
 from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
 
 
@@ -35,7 +36,8 @@ class ModelConfig:
     multi_label: bool = True
     compute_dtype: Any = torch.bfloat16  # conv compute; decode is always f32
     class_names: tuple[str, ...] | None = None
-    # FCOS ltrb decode, "exp" or "linear" (FCOS slice)
+    # FCOS ltrb decode: "exp" (the paper, exp(s_l·raw)·stride) or
+    # "linear" (torchvision's relu(raw)·stride)
     ltrb_decode: str = "exp"
     # anchor table override for the darknet families: 3 levels (P5→P3)
     # of 3 (w, h) pairs in input pixels; None = the family default
@@ -43,7 +45,9 @@ class ModelConfig:
     # the JAX package's TPU approximate pre-NMS top-k; accepted and
     # ignored, the port's top-k is exact everywhere
     approx_topk: bool = True
-    # fused GN in GN-tower heads (FCOS slice)
+    # the JAX package's switch for its fused Pallas GN; accepted and
+    # ignored: the port's towers always call `kernels.gn.bias_gn_relu`
+    # (the CUDA kernel on the card, its plain version on the CPU)
     fused_gn: bool | None = None
 
 
@@ -113,10 +117,24 @@ def check_input_size(size: int) -> None:
 
 
 def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
-    """uint8 NHWC batch → dense single-label predictions: boxes
-    (B, N, 4) xyxy, scores (B, N), classes (B, N), all from the f32
-    decode."""
+    """uint8 NHWC batch → the dense dict the postprocess takes, by
+    family. yolov3: boxes (B, N, 4) xyxy, scores (B, N), classes
+    (B, N), all from the f32 decode. fcos: boxes (B, N, 4) xyxy f32,
+    score_logits (B, N, C) in the compute dtype, score_mul (B, N) =
+    sigmoid(ctr) and, on multi-label configs, score_gate (B, N), the
+    max-over-classes logit; the sigmoid of the class logits waits until
+    after the postprocess's top-k."""
     cfg = model.config
+    if cfg.family == "fcos":
+        cls_logits, ltrb, ctr, *gate = model(images)
+        locations, _ = fcos.generate_locations(int(images.shape[1]),
+                                               images.device)
+        out = {"boxes": fcos.decode_boxes(ltrb, locations),
+               "score_logits": cls_logits,
+               "score_mul": torch.sigmoid(ctr)}
+        if gate:
+            out["score_gate"] = gate[0]
+        return out
     anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
     decoded = yolov3.decode_single_label(model(images), cfg.num_classes,
                                          anchors=anchors)
@@ -133,9 +151,16 @@ def _build_yolov3(cfg: ModelConfig) -> nn.Module:
     return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype)
 
 
+def _build_fcos(cfg: ModelConfig) -> nn.Module:
+    return fcos.FCOS(cfg.num_classes, cfg.compute_dtype,
+                     ltrb_decode=cfg.ltrb_decode, with_gate=cfg.multi_label)
+
+
 register("yolov3", ModelConfig(name="yolov3", family="yolov3",
                                num_classes=80, input_size=416,
                                multi_label=False))(_build_yolov3)
 register("yolov3_608", ModelConfig(name="yolov3_608", family="yolov3",
                                    num_classes=80, input_size=608,
                                    multi_label=False))(_build_yolov3)
+register("fcos", ModelConfig(name="fcos", family="fcos", num_classes=80,
+                             input_size=608, conf_thres=0.05))(_build_fcos)

@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA NMS kernel against its plain version,
-and the CUDA Detector against the CPU one. Every test skips on a host
-without a GPU. This file imports no JAX, so it runs where JAX is not
-installed:
+"""The port on the card: the CUDA NMS and bias+GroupNorm+ReLU kernels
+against their plain versions, and the CUDA Detectors (yolov3, fcos)
+against the CPU ones. Every test skips on a host without a GPU. This
+file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
@@ -13,8 +13,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import golden_image, nms_cases, padded_canvas  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    GN_GROUPS,
+    gn_case,
+    gn_error,
+    golden_image,
+    nms_cases,
+    padded_canvas,
+)
 from mydetection_tpu_torch import Detector  # noqa: E402
+from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
+    bias_gn_relu,
+    bias_gn_relu_plain,
+)
 from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain  # noqa: E402
 
 THR = 0.45
@@ -57,21 +68,69 @@ def test_kernel_rejects_bad_inputs(cuda):
                  torch.ones(1, 20000, dtype=torch.bool, device=cuda), THR)
 
 
-def test_cuda_detector_matches_cpu(cuda):
+# (B, H, W): the five FCOS@608 levels at batch 8, and a ragged one
+GN_SHAPES = [(8, 76, 76), (8, 38, 38), (8, 19, 19), (8, 10, 10), (8, 5, 5),
+             (3, 5, 7)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_kernel_matches_plain(cuda, shape, dtype):
+    """chip_smoke's gates: float32 max |d| <= 1e-5; bf16 within one bf16
+    ulp (plus 1e-5 where the ReLU cuts)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    args = gn_case(gen, *shape, getattr(torch, dtype))
+    before = bias_gn_relu.launches
+    got = bias_gn_relu(*args, groups=GN_GROUPS)
+    torch.cuda.synchronize()
+    assert bias_gn_relu.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err, ok = gn_error(got, bias_gn_relu_plain(*args, groups=GN_GROUPS))
+    assert ok, err
+
+
+def test_gn_kernel_takes_small_groups(cuda):
+    """64 channels in 32 groups: 2 channels a group, the scalar path."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = gn_case(gen, 3, 5, 7, torch.float32, c=64)
+    err, ok = gn_error(bias_gn_relu(*args, groups=32),
+                       bias_gn_relu_plain(*args, groups=32))
+    assert ok, err
+
+
+def test_gn_kernel_rejects_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x, bias, scale, shift = gn_case(gen, 2, 4, 4, torch.float32)
+    before = bias_gn_relu.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_gn_relu(x.contiguous(), bias, scale, shift)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bias_gn_relu(x.half(), bias, scale, shift)
+    with pytest.raises(ValueError, match="groups"):
+        bias_gn_relu(x, bias, scale, shift, groups=3)
+    with pytest.raises(ValueError, match="bias"):
+        bias_gn_relu(x, bias.cpu(), scale, shift)
+    with pytest.raises(ValueError, match="scale"):
+        bias_gn_relu(x, bias, scale.bfloat16(), shift)
+    assert bias_gn_relu.launches == before
+
+
+def _cuda_vs_cpu(name, size, conf, canvas, info, kernel_launches):
     """Same seeded weights, float32 with TF32 off: the golden gates."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        canvas, info = padded_canvas(golden_image(), 416, 8, 58)
-        kw = dict(input_size=416, compute_dtype=torch.float32, rng_seed=1)
-        before = nms_keep.launches
-        gpu = Detector("yolov3", device=cuda, **kw).detect_prepared(
-            canvas[None], [info], conf_thres=0.25)[0]
-        assert nms_keep.launches == before + 1
-        cpu = Detector("yolov3", device="cpu", **kw).detect_prepared(
-            canvas[None], [info], conf_thres=0.25)[0]
+        kw = dict(input_size=size, compute_dtype=torch.float32, rng_seed=1)
+        before = {k: k.launches for k in kernel_launches}
+        gpu = Detector(name, device="cuda", **kw).detect_prepared(
+            canvas[None], [info], conf_thres=conf)[0]
+        for k, n in kernel_launches.items():
+            assert k.launches == before[k] + n, k.__name__
+        cpu = Detector(name, device="cpu", **kw).detect_prepared(
+            canvas[None], [info], conf_thres=conf)[0]
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -80,3 +139,15 @@ def test_cuda_detector_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.scores, cpu.scores, rtol=0, atol=1e-4)
     np.testing.assert_allclose(gpu.boxes_xyxy, cpu.boxes_xyxy, rtol=0,
                                atol=1e-2)
+
+
+def test_cuda_detector_matches_cpu(cuda):
+    canvas, info = padded_canvas(golden_image(), 416, 8, 58)
+    _cuda_vs_cpu("yolov3", 416, 0.25, canvas, info, {nms_keep: 1})
+
+
+def test_cuda_fcos_detector_matches_cpu(cuda):
+    """40 GN launches (8 tower GNs x 5 levels) and one NMS launch."""
+    canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
+    _cuda_vs_cpu("fcos", 320, 0.005, canvas, info,
+                 {nms_keep: 1, bias_gn_relu: 40})

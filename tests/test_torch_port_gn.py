@@ -1,0 +1,146 @@
+"""The fused bias + GroupNorm + ReLU of the port against the JAX package.
+
+`bias_gn_relu_plain` (the CUDA kernel's plain version, which the CPU
+runs) against the TPU kernel `bias_gn_relu_pallas_impl` in interpret
+mode, and against the unfused oracle `fcos.group_norm` + bias + ReLU.
+Same numpy inputs (seeded) through both, NHWC on the JAX side and NCHW
+on the port's. The CUDA kernel's legs are in test_torch_port_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from mydetection_tpu.models import fcos as jfcos  # noqa: E402
+from mydetection_tpu.ops.pallas.gn_kernel import (  # noqa: E402
+    bias_gn_relu_pallas_impl,
+)
+from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
+    bias_gn_relu,
+    bias_gn_relu_plain,
+)
+from mydetection_tpu_torch.models import fcos as tfcos  # noqa: E402
+
+SHAPES = [(2, 8, 8, 256), (3, 5, 7, 64)]
+MEANS = [0.0, 1.0, 3.0]
+
+
+def _gate(base, mean):
+    """`base` at zero mean, widened by 1 + mean²/var (var = 1 here): the
+    one-pass variance E[x²] − E[x]² subtracts two sums of that size, so
+    float32 rounding in the sums (of another order in each version)
+    grows with it. Measured max |Δ| against the Pallas kernel: 1.2e-6 at
+    mean 0, 1.4e-6 at mean 1, 9.3e-6 at mean 3."""
+    return base * (1.0 + mean * mean)
+
+
+def _inputs(shape, mean, seed=0):
+    """x (B, H, W, C) with the given mean and unit spread, bias N(0, 0.5),
+    scale 1 + N(0, 0.2), shift N(0, 0.5), all float32."""
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    x = (rng.randn(*shape) + mean).astype(np.float32)
+    return (x, (rng.randn(c) * 0.5).astype(np.float32),
+            (1 + rng.randn(c) * 0.2).astype(np.float32),
+            (rng.randn(c) * 0.5).astype(np.float32))
+
+
+def _port(x, bias, scale, shift, dtype=torch.float32, **kw):
+    """The plain version on NHWC numpy input; returns NHWC float32."""
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(dtype)
+    y = bias_gn_relu_plain(xt, torch.from_numpy(bias), torch.from_numpy(scale),
+                           torch.from_numpy(shift), **kw)
+    return y.float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("mean", MEANS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_pallas_interpret(shape, mean):
+    """The same arithmetic (f32 bias add, E[x²] − E[x]², ((x − mean)·inv)
+    ·scale + shift) summed in another order: max |Δ| ≤ 2e-6 at zero
+    mean, the JAX package's own figure for its kernel against the
+    oracle, widened with the mean by `_gate`."""
+    x, bias, scale, shift = _inputs(shape, mean)
+    ref = np.asarray(bias_gn_relu_pallas_impl(
+        jnp.asarray(x), jnp.asarray(bias), jnp.asarray(scale),
+        jnp.asarray(shift), groups=32, interpret=True))
+    got = _port(x, bias, scale, shift, groups=32)
+    assert np.abs(got - ref).max() <= _gate(2e-6, mean)
+    assert (got == 0).any() and (got > 0).any()  # the ReLU cut some
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_bf16_within_one_ulp_of_pallas_interpret(shape):
+    """bf16 in and out, f32 inside: the two f32 results are a few ulps
+    apart, so their bf16 roundings differ by at most one bf16 ulp."""
+    x, bias, scale, shift = _inputs(shape, 1.0, seed=1)
+    xb = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    ref = np.asarray(bias_gn_relu_pallas_impl(
+        jnp.asarray(xb).astype(jnp.bfloat16), jnp.asarray(bias),
+        jnp.asarray(scale), jnp.asarray(shift), groups=32,
+        interpret=True).astype(jnp.float32))
+    got = _port(xb, bias, scale, shift, dtype=torch.bfloat16, groups=32)
+    big = np.maximum(np.abs(got), np.abs(ref))
+    ulp = (big.view(np.int32) & 0x7F800000).view(np.float32) * 2.0 ** -7
+    assert (np.abs(got - ref) <= ulp + 1e-6).all()
+
+
+@pytest.mark.parametrize("mean", MEANS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_unfused_group_norm(shape, mean):
+    """Against the JAX package's unfused path (`fcos.group_norm` after
+    the bias, then ReLU), which takes the variance in two passes as
+    E[(x − E[x])²]. The one-pass E[x²] − E[x]² loses the bits the
+    cancellation costs (about log2(1 + mean²/var) of them) where the
+    two-pass form loses none, so the gate is twice the like-for-like
+    kernel gate (measured: 5.7e-6 at mean 3, against 4e-5)."""
+    x, bias, scale, shift = _inputs(shape, mean)
+    ref = np.asarray(jnp.maximum(jfcos.group_norm(
+        jnp.asarray(x) + jnp.asarray(bias),
+        {"scale": jnp.asarray(scale), "bias": jnp.asarray(shift)}), 0.0))
+    got = _port(x, bias, scale, shift, groups=32)
+    assert np.abs(got - ref).max() <= _gate(4e-6, mean)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_port_group_norm_oracle_matches_jax(shape):
+    """The port's copy of the unfused oracle, `models/fcos.group_norm`:
+    the mean's own rounding grows with the mean too (measured 4.3e-6 at
+    mean 3)."""
+    x, _, scale, shift = _inputs(shape, 3.0, seed=2)
+    ref = np.asarray(jfcos.group_norm(
+        jnp.asarray(x), {"scale": jnp.asarray(scale),
+                         "bias": jnp.asarray(shift)}))
+    got = tfcos.group_norm(torch.from_numpy(x).permute(0, 3, 1, 2),
+                           torch.from_numpy(scale), torch.from_numpy(shift))
+    assert np.abs(got.permute(0, 2, 3, 1).numpy() - ref).max() <= _gate(2e-6, 3.0)
+
+
+def test_layouts_give_the_same_output():
+    """channels_last (the card's conv output) and contiguous NCHW input."""
+    x, bias, scale, shift = (torch.from_numpy(a) for a in
+                             _inputs((2, 6, 5, 64), 1.0, seed=3))
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    cl = nchw.contiguous(memory_format=torch.channels_last)
+    assert not cl.is_contiguous()
+    a = bias_gn_relu_plain(nchw, bias, scale, shift, groups=32)
+    b = bias_gn_relu_plain(cl, bias, scale, shift, groups=32)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    """A CPU tensor takes the plain version and counts no launch; a
+    tensor elsewhere than the CPU or a CUDA card is refused."""
+    x, bias, scale, shift = (torch.from_numpy(a) for a in
+                             _inputs((2, 4, 4, 64), 1.0, seed=4))
+    x = x.permute(0, 3, 1, 2)
+    before = bias_gn_relu.launches
+    np.testing.assert_array_equal(
+        bias_gn_relu(x, bias, scale, shift, groups=32).numpy(),
+        bias_gn_relu_plain(x, bias, scale, shift, groups=32).numpy())
+    assert bias_gn_relu.launches == before
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bias_gn_relu(x.to("meta"), bias, scale, shift)
