@@ -14,13 +14,19 @@ Phases, one line each; any failure exits non-zero and prints no result:
               the five FCOS@608 level shapes at B=32 and a ragged 5x7
               at B=3, float32 and bf16, channels_last, inputs with a
               non-zero mean;
-  5. parity   Detector("yolov3", 416) and Detector("fcos", 320), float32
-              with TF32 off, on the card against the same seeded weights
-              on the CPU, on procedural canvases;
-  6. main     each main path once — yolov3-416, then fcos-608 — bf16
-              `detect_prepared` on 32 canvases, with every kernel launch
-              count reset just before and read just after; then the
-              batch's latency, img/s and device time.
+  5. rotated  the CUDA rotated-NMS suppress kernel bit-equal to its plain
+              version on B=32, K=512 IoU matrices (rotated person boxes
+              with jittered duplicates, entries at iou_thres and one ulp
+              around it, a deliberately asymmetric matrix, an
+              all-padding image, fewer valid rows than 64);
+  6. parity   Detector("yolov3", 416), Detector("fcos", 320) and
+              Detector("rapid", 320), float32 with TF32 off, on the card
+              against the same seeded weights on the CPU, on procedural
+              canvases;
+  7. main     each main path once — yolov3-416, fcos-608, rapid-1024 —
+              bf16 `detect_prepared` on 32 canvases, with every kernel
+              launch count reset just before and read just after; then
+              the batch's latency, img/s and device time.
 
 Then one JSON line with a row per kernel, the card's name and power
 limit, and the result line `{"ok": true, "device": {...}}`. Needs no
@@ -40,7 +46,13 @@ import torch
 IOU_THRES = 0.45
 BATCH = 32
 PRE_NMS = 1024
+ROT_PRE_NMS = 512   # rapid's registered pre_nms
 OPS_PER_IOU = 12    # min/max x4, sub x2, clamp x2, mul, add, sub, div
+# one Liang-Barsky rotated IoU, counted from ops/rotated.py: midpoint and
+# shifts 8, pair-dependent corners 32, two edge-clip passes of ~430 each
+# (per corner: frame 9, slab clips 32, clamps 8, endpoints 8, face test
+# 28, back-rotation 16, cross 4), areas, union and divide ~11
+OPS_PER_ROTATED_IOU = 915
 # bias add, sum, square, sum; subtract mean, x inv, x scale, + shift, max
 OPS_PER_GN_ELEMENT = 9
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
@@ -165,6 +177,63 @@ def nms_cases(rng, b: int, k: int, thr: float = IOU_THRES):
     return boxes, valid
 
 
+def person_boxes(rng, n: int, canvas: float = 1024.0) -> np.ndarray:
+    """(n, 5) float32 rotated person-sized boxes (cx, cy, w, h, θ) in a
+    canvas² image, about a third of them jittered duplicates of others."""
+    c = rng.uniform(0, canvas, (n, 2))
+    wh = np.stack([rng.uniform(20, 80, n), rng.uniform(40, 200, n)], 1)
+    th = rng.uniform(-np.pi / 2, np.pi / 2, n)
+    boxes = np.concatenate([c, wh, th[:, None]], 1)
+    dup = rng.uniform(size=n) < 0.35
+    src = rng.randint(0, n, n)
+    jitter = rng.normal(0, 1, (n, 5)) * [3, 3, 4, 4, 0.05]
+    boxes = np.where(dup[:, None], boxes[np.minimum(src, np.arange(n))] + jitter,
+                     boxes)
+    return boxes.astype(np.float32)
+
+
+def rotated_cases(rng, b: int, k: int, thr: float = IOU_THRES,
+                  device: str = "cpu"):
+    """Hard suppress-kernel inputs: iou (b, k, k) float32 on `device`
+    from the port's `pairwise_rotated_iou`, rows in score order, and
+    valid (b, k) bool. Image i is of kind i % 6: person boxes with
+    jittered duplicates; the same with a padding tail; a fifth of the
+    upper-triangle entries set to thr or one ulp from it; a deliberately
+    asymmetric matrix (the lower triangle replaced by noise, so a kernel
+    that reads iou[later, earlier] disagrees); all padding; fewer valid
+    rows than 64."""
+    from mydetection_tpu_torch.ops.rotated import pairwise_rotated_iou
+
+    boxes = torch.from_numpy(np.stack([person_boxes(rng, k)
+                                       for _ in range(b)])).to(device)
+    iou = pairwise_rotated_iou(boxes, boxes).contiguous()
+    valid = np.ones((b, k), bool)
+    thr32 = np.float32(thr)
+    near = np.array([np.nextafter(thr32, np.float32(-1)), thr32,
+                     np.nextafter(thr32, np.float32(2))], np.float32)
+    upper = np.triu(np.ones((k, k), bool), 1)
+    for i in range(b):
+        kind = i % 6
+        if kind == 1:
+            valid[i, rng.randint(k // 4, k):] = False
+        elif kind == 2:
+            hit = upper & (rng.uniform(size=(k, k)) < 0.2)
+            m = iou[i].cpu().numpy()
+            m[hit] = near[rng.randint(0, 3, int(hit.sum()))]
+            iou[i] = torch.from_numpy(m).to(device)
+        elif kind == 3:
+            m = iou[i].cpu().numpy()
+            noise = rng.uniform(0, 1, (k, k)).astype(np.float32)
+            m = np.where(upper, m, noise)
+            iou[i] = torch.from_numpy(m).to(device)
+        elif kind == 4:
+            valid[i] = False
+        elif kind == 5:
+            valid[i] = False
+            valid[i, :rng.randint(1, 64)] = True
+    return iou, torch.from_numpy(valid).to(device)
+
+
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
@@ -183,28 +252,62 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def greedy_pairs(iou: torch.Tensor, valid: torch.Tensor,
+                 keep: torch.Tensor) -> int:
+    """The (kept i, later j) entries greedy must consult on these
+    inputs: each valid box against the kept boxes before it, up to its
+    first suppressor."""
+    k = iou.shape[-1]
+    kept = keep.long()
+    rank = torch.cumsum(kept, dim=1)                       # kept at <= i
+    sup = ((iou > np.float32(IOU_THRES)) & keep[:, :, None]
+           & torch.ones(k, k, dtype=torch.bool, device=iou.device).triu(1))
+    has_sup = sup.any(dim=1)                               # (B, K) over j
+    first = sup.to(torch.uint8).argmax(dim=1)              # first suppressor
+    tested = torch.where(has_sup, torch.gather(rank, 1, first), rank - kept)
+    return int((tested * valid.long()).sum())
+
+
 def nms_bound_ms(boxes: torch.Tensor, valid: torch.Tensor,
                  keep: torch.Tensor) -> tuple[float, str]:
     """Least time for the keep-mask of these inputs: bytes (boxes and
     valid read once, keep written once) over HBM rate, against the IoUs
-    greedy needs here (each valid box against the kept boxes before it,
-    up to its first suppressor) over the fp32 rate."""
+    greedy needs here (`greedy_pairs`) over the fp32 rate."""
     from mydetection_tpu_torch.ops.boxes import pairwise_iou
 
     b, k, _ = boxes.shape
     nbytes = boxes.numel() * 4 + valid.numel() + keep.numel()
-    kept = keep.long()
-    rank = torch.cumsum(kept, dim=1)                       # kept at <= i
-    iou = pairwise_iou(boxes, boxes)
-    sup = ((iou > np.float32(IOU_THRES)) & keep[:, :, None]
-           & torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1))
-    has_sup = sup.any(dim=1)                               # (B, K) over j
-    first = sup.to(torch.uint8).argmax(dim=1)              # first suppressor
-    tested = torch.where(has_sup, torch.gather(rank, 1, first), rank - kept)
-    pairs = int((tested * valid.long()).sum())
+    pairs = greedy_pairs(pairwise_iou(boxes, boxes), valid, keep)
     ops = pairs * OPS_PER_IOU + 3 * b * k                  # + the areas
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rotated_nms_bound_ms(iou: torch.Tensor, valid: torch.Tensor,
+                         keep: torch.Tensor) -> tuple[float, str, float]:
+    """Least time for the suppress of these inputs: the IoU entries
+    greedy needs here (`greedy_pairs`, 4 bytes and one compare each),
+    valid read and keep written once, over HBM rate, against the
+    compares over the fp32 rate. Also returns the dense figure, every
+    entry of the (B, K, K) matrix read once, in ms."""
+    pairs = greedy_pairs(iou, valid, keep)
+    nbytes = pairs * 4 + valid.numel() + keep.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs / FP32_OPS_PER_S * 1e3
+    dense = (iou.numel() * 4 + valid.numel() + keep.numel()) / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            dense)
+
+
+def rotated_iou_bound_ms(boxes: torch.Tensor) -> tuple[float, str]:
+    """Least time for the (B, K, K) rotated-IoU matrix of boxes (B, K,
+    5): the boxes read once and the matrix written once over HBM rate,
+    against OPS_PER_ROTATED_IOU float32 operations a pair over the fp32
+    rate."""
+    b, k, _ = boxes.shape
+    t_bytes = (boxes.numel() * 4 + b * k * k * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = b * k * k * OPS_PER_ROTATED_IOU / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -309,26 +412,68 @@ def phase_gn() -> None:
           f"{', '.join(report)}", flush=True)
 
 
-def check_parity(name: str, canvas, info, conf: float) -> None:
+def phase_rotated(rng) -> None:
+    from mydetection_tpu_torch.kernels.rotated_nms import (
+        nms_from_iou_keep,
+        nms_from_iou_keep_plain,
+    )
+
+    iou, valid = rotated_cases(rng, BATCH, ROT_PRE_NMS, device="cuda")
+    keep = nms_from_iou_keep(iou, valid, IOU_THRES)
+    plain = nms_from_iou_keep_plain(iou, valid, IOU_THRES)
+    torch.cuda.synchronize()
+    diff = int((keep != plain).sum())
+    if diff:
+        bad = sorted({int(i) for i in (keep != plain).nonzero()[:, 0]})
+        raise AssertionError(f"suppress kernel keep-mask differs from the "
+                             f"plain version in {diff} entries (images {bad})")
+    if keep[4].any() or (keep & ~valid).any() or not keep.any():
+        raise AssertionError("a padding row was kept, or none kept")
+    print(f"rotated: nms_from_iou_keep bit-equal to plain on B={BATCH} "
+          f"K={ROT_PRE_NMS} hard cases ({int(keep.sum())} kept of "
+          f"{int(valid.sum())} valid); kernel "
+          f"{cuda_ms(lambda: nms_from_iou_keep(iou, valid, IOU_THRES)):.4f} ms, "
+          f"plain {cuda_ms(lambda: nms_from_iou_keep_plain(iou, valid, IOU_THRES), 3):.3f} ms",
+          flush=True)
+
+
+def compare_rotated(gpu, cpu) -> str:
+    """boxes_rot gates of the rapid parity: cx, cy within 1e-2 px; w, h
+    within 1e-2 px + 1e-5 relative (seeded widths reach 1e6 px); θ
+    within 1e-5 rad. Returns the report, raises outside a gate."""
+    g, c = gpu.boxes_rot, cpu.boxes_rot
+    d = np.abs(g - c)
+    dxy = float(d[:, :2].max())
+    dwh = float((d[:, 2:4] / (1e-2 + 1e-5 * np.abs(c[:, 2:4]))).max())
+    dth = float(d[:, 4].max())
+    if dxy > 1e-2 or dwh > 1 or dth > 1e-5:
+        raise AssertionError(f"rapid cuda/cpu boxes_rot: max |d cxcy| {dxy:.3g}"
+                             f" px (gate 1e-2), w/h at {dwh:.3g} of their "
+                             f"gate, max |d theta| {dth:.3g} (gate 1e-5)")
+    return (f"max |d cxcy| {dxy:.3g} px, w/h at {dwh:.3g} of the gate, "
+            f"max |d theta| {dth:.3g}")
+
+
+def check_parity(name: str, canvas, info, conf: float, kernel) -> None:
     """The CUDA Detector against the CPU one on the same seeded weights,
     float32, TF32 off: counts and classes equal, scores within 1e-4,
-    boxes within 1e-2 px; the CUDA run launches the NMS kernel once."""
+    boxes within 1e-2 px (rotated: `compare_rotated`); the CUDA run
+    launches `kernel`, its NMS, once."""
     from mydetection_tpu_torch import Detector
-    from mydetection_tpu_torch.kernels.nms import nms_keep
 
     size = canvas.shape[0]
     kw = dict(input_size=size, compute_dtype=torch.float32, rng_seed=0)
     runs = {}
     for device in ("cpu", "cuda"):
         det = Detector(name, device=device, **kw)
-        before = nms_keep.launches
+        before = kernel.launches
         runs[device] = det.detect_prepared(canvas[None], [info],
                                            conf_thres=conf,
                                            nms_iou=IOU_THRES)[0]
-        launched = nms_keep.launches - before
+        launched = kernel.launches - before
     cpu, gpu = runs["cpu"], runs["cuda"]
     if launched != 1:
-        raise AssertionError(f"CUDA {name} detect launched the NMS kernel "
+        raise AssertionError(f"CUDA {name} detect launched {kernel.__name__} "
                              f"{launched} times, expected 1")
     if len(gpu) != len(cpu) or not np.array_equal(gpu.classes, cpu.classes):
         raise AssertionError(f"{name} cuda/cpu detections differ: {len(gpu)} "
@@ -337,23 +482,36 @@ def check_parity(name: str, canvas, info, conf: float) -> None:
     if len(cpu) == 0:
         raise AssertionError(f"{name} parity canvas produced no detections")
     ds = float(np.abs(gpu.scores - cpu.scores).max())
-    db = float(np.abs(gpu.boxes_xyxy - cpu.boxes_xyxy).max())
-    if ds > 1e-4 or db > 1e-2:
+    if ds > 1e-4:
         raise AssertionError(f"{name} cuda/cpu max |d score| {ds:.3g} (gate "
-                             f"1e-4), max |d box| {db:.3g} px (gate 1e-2)")
+                             f"1e-4)")
+    if cpu.boxes_rot is not None:
+        boxes = compare_rotated(gpu, cpu)
+    else:
+        db = float(np.abs(gpu.boxes_xyxy - cpu.boxes_xyxy).max())
+        if db > 1e-2:
+            raise AssertionError(f"{name} cuda/cpu max |d box| {db:.3g} px "
+                                 f"(gate 1e-2)")
+        boxes = f"max |d box| {db:.3g} px"
     print(f"parity: {name}-{size} f32 (TF32 off) cuda == cpu on {len(cpu)} "
-          f"detections at conf {conf}, max |d score| {ds:.3g}, max |d box| "
-          f"{db:.3g} px", flush=True)
+          f"detections at conf {conf}, max |d score| {ds:.3g}, {boxes}",
+          flush=True)
 
 
 def phase_parity() -> None:
+    from mydetection_tpu_torch.kernels.nms import nms_keep
+    from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    check_parity("yolov3", *padded_canvas(golden_image(), 416, 8, 58), 0.25)
+    check_parity("yolov3", *padded_canvas(golden_image(), 416, 8, 58), 0.25,
+                 nms_keep)
     # at init FCOS scores sit near 0.01 x 0.5: conf 0.005 keeps the
     # phase from being vacuous
     check_parity("fcos", *padded_canvas(golden_image()[:, 50:350], 320, 10, 10),
-                 0.005)
+                 0.005, nms_keep)
+    check_parity("rapid", *padded_canvas(golden_image()[:, 50:350], 320, 10, 10),
+                 0.3, nms_from_iou_keep)
 
 
 def main_canvases(size: int):
@@ -372,35 +530,76 @@ def main_canvases(size: int):
     return np.stack(canvases), infos
 
 
+def check_detections(dets, infos, name: str, rotated: bool) -> None:
+    """Per image: finite, descending scores; fcos and rapid at least one
+    detection; axis-aligned boxes inside their image; rotated boxes with
+    w, h > 0 and θ in [-π/2, π/2] (their envelope is not clipped, as in
+    the JAX package)."""
+    for d, info in zip(dets, infos):
+        s = d.scores
+        if len(s) == 0 and name != "yolov3":
+            raise AssertionError(f"a {name} image yielded no detection")
+        if not (np.isfinite(s).all() and np.isfinite(d.boxes_xyxy).all()):
+            raise AssertionError("non-finite detections")
+        if len(s) > 1 and (np.diff(s) > 0).any():
+            raise AssertionError("scores are not descending")
+        if rotated:
+            r = d.boxes_rot
+            if not (np.isfinite(r).all() and (r[:, 2:4] > 0).all()
+                    and (np.abs(r[:, 4]) <= np.float32(np.pi / 2)).all()):
+                raise AssertionError("a rotated box is non-finite, has no "
+                                     "area, or its angle leaves [-pi/2, pi/2]")
+            continue
+        bx = d.boxes_xyxy
+        if len(bx) and ((bx < 0).any() or (bx[:, 0::2] > info.ori_w).any()
+                        or (bx[:, 1::2] > info.ori_h).any()):
+            raise AssertionError("a box lies outside its image")
+
+
 def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
                capture_gn: bool = False) -> dict:
     """One main path: bf16 `detect_prepared` on BATCH canvases with every
     launch count reset just before and read just after (each kernel in
     `expect` must show exactly that count, every other kernel none),
     the detections checked, then the batch's timing. Returns the NMS
-    inputs (and, with capture_gn, every bias_gn_relu call's inputs) of
+    inputs (rotated: the suppress kernel's, and the boxes behind its IoU
+    matrix; with capture_gn, every bias_gn_relu call's inputs too) of
     the counted run."""
     from mydetection_tpu_torch import Detector, kernels
     from mydetection_tpu_torch.kernels.gn import bias_gn_relu
     from mydetection_tpu_torch.kernels.nms import nms_keep
+    from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
     from mydetection_tpu_torch.models import fcos as fcos_mod
     from mydetection_tpu_torch.ops import nms as ops_nms
+    from mydetection_tpu_torch.ops import rotated as ops_rot
     from mydetection_tpu_torch.registry import forward_dense
 
     det = Detector(name, input_size=size, rng_seed=0)  # cuda, bf16
+    rotated = det.cfg.rotated
     canvases, infos = main_canvases(size)
     det.warmup(batch_size=BATCH)
     captured = {"gn": []}
+    pairwise = ops_rot.pairwise_rotated_iou
 
     def capture_nms(boxes, valid, thr):
         captured.update(boxes=boxes, valid=valid)
         return nms_keep(boxes, valid, thr)
+
+    def capture_suppress(iou, valid, thr, **kw):
+        captured.update(iou=iou, valid=valid)
+        return nms_from_iou_keep(iou, valid, thr, **kw)
+
+    def capture_pairwise(a, b):
+        captured.update(rot_boxes=a)
+        return pairwise(a, b)
 
     def capture_gn_call(x, bias, scale, shift, **kw):
         captured["gn"].append((x, bias, scale, shift))
         return bias_gn_relu(x, bias, scale, shift, **kw)
 
     ops_nms.nms_keep = capture_nms
+    ops_rot.nms_from_iou_keep = capture_suppress
+    ops_rot.pairwise_rotated_iou = capture_pairwise
     if capture_gn:
         fcos_mod.bias_gn_relu = capture_gn_call
     try:
@@ -410,23 +609,14 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     finally:
         ops_nms.nms_keep = nms_keep
+        ops_rot.nms_from_iou_keep = nms_from_iou_keep
+        ops_rot.pairwise_rotated_iou = pairwise
         fcos_mod.bias_gn_relu = bias_gn_relu
     want = {fn.__name__: expect.get(fn.__name__, 0) for fn in kernels.KERNELS}
     if launches != want:
         raise AssertionError(f"{name} main path launches {launches}, "
                              f"expected {want}")
-    for d, info in zip(dets, infos):
-        s = d.scores
-        if len(s) == 0 and name == "fcos":
-            raise AssertionError("an fcos image yielded no detection")
-        if not (np.isfinite(s).all() and np.isfinite(d.boxes_xyxy).all()):
-            raise AssertionError("non-finite detections")
-        if len(s) > 1 and (np.diff(s) > 0).any():
-            raise AssertionError("scores are not descending")
-        bx = d.boxes_xyxy
-        if len(bx) and ((bx < 0).any() or (bx[:, 0::2] > info.ori_w).any()
-                        or (bx[:, 1::2] > info.ori_h).any()):
-            raise AssertionError("a box lies outside its image")
+    check_detections(dets, infos, name, rotated)
 
     times = []
     for _ in range(10):
@@ -443,13 +633,24 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         dense = forward_dense(det.model, images)
         fwd_ms = cuda_ms(lambda: forward_dense(det.model, images), 5)
         post_ms = cuda_ms(lambda: det._post(dense, conf_t, IOU_THRES), 5)
+    split = ""
+    if rotated:
+        rb, iou, valid = captured["rot_boxes"], captured["iou"], captured["valid"]
+        with torch.inference_mode():
+            iou_ms = cuda_ms(lambda: pairwise(rb, rb), 5)
+        kernel_ms = cuda_ms(lambda: nms_from_iou_keep(iou, valid, IOU_THRES))
+        iou_bound, iou_by = rotated_iou_bound_ms(rb)
+        split = (f" (IoU matrix {iou_ms:.3f} ms, bound {iou_bound:.4f} ms by "
+                 f"{iou_by}; suppress kernel {kernel_ms:.4f} ms); detections "
+                 f"per image {[len(d) for d in dets]}")
     print(f"main: {name}-{size} bf16 detect_prepared batch {BATCH} at conf "
           f"{conf}: {len(dets)} images, {sum(len(d) for d in dets)} "
           f"detections, launches {launches}; median batch latency "
           f"{lat * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
           f"{max(times) * 1e3:.2f}), {BATCH / lat:.1f} img/s; device: "
-          f"forward_dense {fwd_ms:.2f} ms, postprocess {post_ms:.2f} ms; "
-          f"on {smi} (sm clock, power, temp after: {clocks})", flush=True)
+          f"forward_dense {fwd_ms:.2f} ms, postprocess {post_ms:.2f} ms"
+          f"{split}; on {smi} (sm clock, power, temp after: {clocks})",
+          flush=True)
     captured["launches"] = launches
     return captured
 
@@ -523,6 +724,44 @@ def gn_row(captured: dict) -> dict:
     }
 
 
+def rotated_row(captured: dict) -> dict:
+    """The suppress kernel at the rapid main path's own inputs."""
+    from mydetection_tpu_torch.kernels.rotated_nms import (
+        nms_from_iou_keep,
+        nms_from_iou_keep_plain,
+    )
+
+    iou, valid = captured["iou"], captured["valid"]
+    keep = nms_from_iou_keep(iou, valid, IOU_THRES)
+    plain = nms_from_iou_keep_plain(iou, valid, IOU_THRES)
+    err = float((keep.float() - plain.float()).abs().max())
+    if err:
+        raise AssertionError("suppress kernel and plain keep-masks differ on "
+                             "the rapid main path's inputs")
+    bound, bound_by, dense = rotated_nms_bound_ms(iou, valid, keep)
+    row = {
+        "name": "nms_from_iou_keep", "route": "cuda",
+        "source": "mydetection_tpu_torch/kernels/csrc/rotated_nms.cu",
+        "replaces": "mydetection_tpu/ops/pallas/rotated_nms_kernel.py:36",
+        "launches": captured["launches"]["nms_from_iou_keep"],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: nms_from_iou_keep(iou, valid, IOU_THRES)),
+        "plain_ms": cuda_ms(lambda: nms_from_iou_keep_plain(iou, valid,
+                                                            IOU_THRES), 3),
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "dense_read_ms": dense,
+        "note": "no single PyTorch call computes greedy NMS from an IoU "
+                "matrix; bound_ms counts the entries greedy consults on "
+                "these inputs, dense_read_ms every entry of the matrix",
+    }
+    print(f"rotated on the rapid main path: {int(keep.sum())} kept of "
+          f"{int(valid.sum())} valid (per image {keep.sum(1).tolist()}), "
+          f"bit-equal; kernel {row['ms']:.4f} ms "
+          f"(bound {bound:.6f} ms by {bound_by}, the whole matrix read once "
+          f"{dense:.4f} ms), plain {row['plain_ms']:.3f} ms", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -540,6 +779,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; {' | '.join(ptxas)}", flush=True)
     phase_kernel(np.random.RandomState(0))
     phase_gn()
+    phase_rotated(np.random.RandomState(0))
     phase_parity()
     yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
     rows = [nms_row(yolo)]
@@ -551,6 +791,9 @@ def main() -> int:
     print(f"nms on the fcos main path: kernel {on_fcos['ms']:.4f} ms (bound "
           f"{on_fcos['bound_ms']:.6f} ms by {on_fcos['bound_by']}), plain "
           f"{on_fcos['plain_ms']:.3f} ms, bit-equal", flush=True)
+    del fcos
+    rapid = drive_main("rapid", 1024, 0.3, smi, {"nms_from_iou_keep": 1})
+    rows.append(rotated_row(rapid))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

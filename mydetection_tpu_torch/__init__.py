@@ -1,10 +1,11 @@
 """mydetection_tpu_torch — the PyTorch/CUDA port of mydetection_tpu.
 
-The YOLOv3 and FCOS detect paths in PyTorch for an NVIDIA H100, with
-the JAX package's Pallas NMS and fused bias+GroupNorm+ReLU kernels
-rewritten as hand-written CUDA kernels (`kernels/csrc/nms.cu`,
-`kernels/csrc/gn.cu`, built with nvcc at their first launch). It
-imports nothing of JAX or of `mydetection_tpu`.
+The YOLOv3, FCOS and RAPiD (rotated boxes) detect paths in PyTorch for
+an NVIDIA H100, with the JAX package's Pallas NMS, fused
+bias+GroupNorm+ReLU and rotated-NMS suppress kernels rewritten as
+hand-written CUDA kernels (`kernels/csrc/nms.cu`, `kernels/csrc/gn.cu`,
+`kernels/csrc/rotated_nms.cu`, built with nvcc at their first launch).
+It imports nothing of JAX or of `mydetection_tpu`.
 
 Public surface:
     Detector(model_name=..., weights_path=..., device=...)

@@ -1,16 +1,21 @@
 """User-facing Detector API: build-by-name → detect on images.
 
-A port of `mydetection_tpu/api.py` for the YOLOv3 and FCOS families:
+A port of `mydetection_tpu/api.py` for the YOLOv3, FCOS and RAPiD
+families:
 
   host:   image load + letterbox (PIL, bilinear)
   device: the model's dense forward (`registry.forward_dense`) — yolov3:
           normalize → Darknet-53 → neck + heads → f32 single-label
           decode; fcos: ImageNet standardize → ResNet-50 → FPN → GN
           towers (40 launches of the CUDA bias+GN+ReLU kernel) → heads →
-          box decode, class logits kept for the postprocess —
+          box decode, class logits kept for the postprocess; rapid:
+          normalize → Darknet-53 → neck + 6-channel heads → f32
+          angle-aware decode —
           then the postprocess: top-k (two stages on multi-label
           configs) → class-offset greedy NMS (one CUDA kernel launch
-          for the whole batch) → max_dets rows + mask
+          for the whole batch) → max_dets rows + mask; rotated: top-k →
+          the rotated-IoU matrix → the greedy suppress kernel (one
+          launch for the batch) → max_dets rows + mask
   host:   strip invalid rows, inverse-letterbox to original pixels.
 
 The device is explicit: `Detector(..., device=None)` means "cuda" and
@@ -29,6 +34,7 @@ from mydetection_tpu_torch import checkpoint as ckpt_lib
 from mydetection_tpu_torch.convert import from_jax_params
 from mydetection_tpu_torch.models.layers import init_weights
 from mydetection_tpu_torch.ops.nms import postprocess
+from mydetection_tpu_torch.ops.rotated import box_corners, rotated_postprocess
 from mydetection_tpu_torch.registry import (
     check_input_size,
     forward_dense,
@@ -37,6 +43,7 @@ from mydetection_tpu_torch.registry import (
 from mydetection_tpu_torch.utils.image_ops import (
     LetterboxInfo,
     boxes_xyxy_to_original,
+    detections_to_original,
     letterbox_pil,
 )
 
@@ -45,20 +52,29 @@ from mydetection_tpu_torch.utils.image_ops import (
 class Detections:
     """Final detections for one image, in ORIGINAL image pixel coords.
 
-    boxes_xyxy: (K, 4) float32 axis-aligned corners (K = 0 is fine).
+    boxes_xyxy: (K, 4) float32 axis-aligned corners (K = 0 is fine); for
+                rotated models the unclipped envelope of each box.
     scores:     (K,) float32, descending.
     classes:    (K,) int32 contiguous class ids.
+    boxes_rot:  (K, 5) float32 (cx, cy, w, h, θ radians) for rotated
+                models, else None.
     """
 
     boxes_xyxy: np.ndarray
     scores: np.ndarray
     classes: np.ndarray
+    boxes_rot: np.ndarray | None = None
 
     def __len__(self) -> int:
         return int(self.scores.shape[0])
 
     def as_array(self) -> np.ndarray:
-        """Reference-style rows (x1, y1, x2, y2, score, cls)."""
+        """Reference-style rows (x1, y1, x2, y2, score, cls) or, for
+        rotated models, (cx, cy, w, h, θ degrees, score)."""
+        if self.boxes_rot is not None:
+            rot = self.boxes_rot.copy()
+            rot[:, 4] = np.degrees(rot[:, 4])
+            return np.concatenate([rot, self.scores[:, None]], axis=1)
         return np.concatenate(
             [self.boxes_xyxy, self.scores[:, None],
              self.classes[:, None].astype(np.float32)], axis=1)
@@ -92,14 +108,21 @@ def load_image_any(im):
 
 def strip_detections(out: dict, i: int, info: LetterboxInfo, *,
                      rotated: bool = False) -> Detections:
-    """Padded host output row `i` → `Detections` in original pixels."""
-    if rotated:
-        raise NotImplementedError("rotated detections arrive with the RAPiD "
-                                  "slice of the port")
+    """Padded host output row `i` → `Detections` in original pixels.
+    Rotated rows map back with their angle kept (radians), and their
+    xyxy is the envelope of the box's corners, not clipped to the image
+    (the JAX package does not clip it either)."""
     valid = out["valid"][i]
     scores = out["scores"][i][valid].astype(np.float32)
     classes = out["classes"][i][valid].astype(np.int32)
     boxes = out["boxes"][i][valid].astype(np.float32)
+    if rotated:
+        rot = detections_to_original(boxes, info)
+        corners = box_corners(torch.from_numpy(rot)).numpy()   # (K, 4, 2)
+        xyxy = np.concatenate([corners.min(axis=1), corners.max(axis=1)],
+                              axis=1)
+        return Detections(boxes_xyxy=xyxy, scores=scores, classes=classes,
+                          boxes_rot=rot)
     return Detections(boxes_xyxy=boxes_xyxy_to_original(boxes, info),
                       scores=scores, classes=classes)
 
@@ -110,6 +133,11 @@ def make_post(cfg):
     of its vmap, so NMS launches once per batch."""
 
     def post(dense: dict, conf_thres: torch.Tensor, nms_iou: float) -> dict:
+        if cfg.rotated:
+            return rotated_postprocess(dense["boxes"], dense["scores"],
+                                       conf_thres=conf_thres,
+                                       iou_thres=nms_iou, pre_nms=cfg.pre_nms,
+                                       max_dets=cfg.max_dets)
         return postprocess(dense["boxes"], dense.get("scores"),
                            dense.get("classes"),
                            score_logits=dense.get("score_logits"),

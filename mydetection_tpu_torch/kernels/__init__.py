@@ -6,8 +6,9 @@ Every wrapper here counts its launches in a `launches` attribute;
 
 from mydetection_tpu_torch.kernels.gn import bias_gn_relu
 from mydetection_tpu_torch.kernels.nms import nms_keep
+from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
 
-KERNELS = (nms_keep, bias_gn_relu)
+KERNELS = (nms_keep, bias_gn_relu, nms_from_iou_keep)
 
 
 def reset_launches() -> None:

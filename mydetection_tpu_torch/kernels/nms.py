@@ -23,18 +23,21 @@ from mydetection_tpu_torch.ops.boxes import pairwise_iou
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
-def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
-                   iou_thres: float, *, block: int = 128) -> torch.Tensor:
-    """Keep-mask (B, K) for score-sorted xyxy `boxes` (B, K, 4) float32
-    and `valid` (B, K): within each block of `block` boxes a sequential
-    greedy resolve, then the block's kept boxes suppress every later
-    box in one vectorized pass."""
-    b, k, _ = boxes.shape
+def greedy_keep_from_iou(iou: torch.Tensor, valid: torch.Tensor,
+                         iou_thres: float, *, block: int) -> torch.Tensor:
+    """Greedy keep-mask (B, K) from a precomputed IoU matrix (B, K, K)
+    of score-sorted rows and `valid` (B, K): box j is dropped when a
+    kept box i < j has iou[i, j] > iou_thres (read row i, column j: the
+    matrix need not be symmetric). Within each block of `block` rows a
+    sequential resolve, then the block's kept rows suppress every later
+    box in one vectorized pass — the JAX package's blocked oracle,
+    batched over images. The one plain definition behind both NMS
+    kernels' plain versions."""
+    b, k, _ = iou.shape
     block = min(block, k)
-    thr = torch.tensor(np.float32(iou_thres), device=boxes.device)
-    iou = pairwise_iou(boxes, boxes)                          # (B, K, K)
+    thr = torch.tensor(np.float32(iou_thres), device=iou.device)
     keep = valid.bool().clone()
-    idx = torch.arange(k, device=boxes.device)
+    idx = torch.arange(k, device=iou.device)
     for start in range(0, k, block):
         stop = min(start + block, k)
         rows = iou[:, start:stop]                             # (B, T, K)
@@ -47,6 +50,14 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
         keep &= ~(sup_any & (idx >= stop))
         keep[:, start:stop] = bk
     return keep & valid.bool()
+
+
+def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_thres: float, *, block: int = 128) -> torch.Tensor:
+    """Keep-mask (B, K) for score-sorted xyxy `boxes` (B, K, 4) float32
+    and `valid` (B, K): `greedy_keep_from_iou` over their IoU matrix."""
+    return greedy_keep_from_iou(pairwise_iou(boxes, boxes), valid, iou_thres,
+                                block=block)
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,

@@ -68,9 +68,12 @@ class Branch(nn.Module):
 class YOLOv3Head(nn.Module):
     """Neck + 3 detection branches over Darknet-53's C3/C4/C5."""
 
-    def __init__(self, num_classes: int = 80, num_anchors: int = 3):
+    def __init__(self, num_classes: int = 80, num_anchors: int = 3, *,
+                 channels_per_anchor: int | None = None):
         super().__init__()
-        no = num_anchors * (5 + num_classes)
+        per_anchor = (5 + num_classes if channels_per_anchor is None
+                      else channels_per_anchor)
+        no = num_anchors * per_anchor
         self.block5 = Conv5(1024, 512)
         self.head5 = Branch(512, 1024, no)
         self.lateral4 = ConvBNLeaky(512, 256, 1)
@@ -81,7 +84,7 @@ class YOLOv3Head(nn.Module):
         self.head3 = Branch(128, 256, no)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """(C3, C4, C5) NCHW → raw [P5, P4, P3], each (B, H, W, A*(5+C))."""
+        """(C3, C4, C5) NCHW → raw [P5, P4, P3], each (B, H, W, A*no)."""
         c3, c4, c5 = feats
         x5 = self.block5(c5)
         out5 = self.head5(x5)
@@ -95,14 +98,18 @@ class YOLOv3Head(nn.Module):
 
 
 class YOLOv3(nn.Module):
-    """Darknet-53 + YOLOv3 head: uint8 NHWC images → raw NHWC heads."""
+    """Darknet-53 + YOLOv3 head: uint8 NHWC images → raw NHWC heads.
+    `channels_per_anchor` overrides the per-anchor output width (default
+    5 + num_classes); RAPiD passes 6 for (x, y, w, h, θ, conf)."""
 
     def __init__(self, num_classes: int = 80,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, *,
+                 channels_per_anchor: int | None = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.backbone = Darknet53()
-        self.head = YOLOv3Head(num_classes)
+        self.head = YOLOv3Head(num_classes,
+                               channels_per_anchor=channels_per_anchor)
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         x = images.permute(0, 3, 1, 2)

@@ -1,11 +1,12 @@
 """Model factory: string name → model module (the build-by-name surface).
 
-A port of `mydetection_tpu/registry.py` for the YOLOv3 and FCOS
+A port of `mydetection_tpu/registry.py` for the YOLOv3, FCOS and RAPiD
 families: `ModelConfig` keeps the JAX package's fields, `get_model`
 builds the `nn.Module` with the config on its `config` attribute, and
 `forward_dense` is the decode glue of `dense_from_raw` (raw heads →
-dense xyxy boxes with scores and classes, or with class logits for the
-multi-label postprocess). Further families register with their slices.
+dense xyxy boxes with scores and classes, class logits for the
+multi-label postprocess, or rotated cxcywhθ boxes with scores). Further
+families register with their slices.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.models import fcos, yolov3
+from mydetection_tpu_torch.models import fcos, rapid, yolov3
 from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
 
 
@@ -123,7 +124,8 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
     score_logits (B, N, C) in the compute dtype, score_mul (B, N) =
     sigmoid(ctr) and, on multi-label configs, score_gate (B, N), the
     max-over-classes logit; the sigmoid of the class logits waits until
-    after the postprocess's top-k."""
+    after the postprocess's top-k. rapid: boxes (B, N, 5) cxcywhθ
+    (radians) and scores (B, N), float32."""
     cfg = model.config
     if cfg.family == "fcos":
         cls_logits, ltrb, ctr, *gate = model(images)
@@ -135,6 +137,10 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
         if gate:
             out["score_gate"] = gate[0]
         return out
+    if cfg.family == "rapid":
+        anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
+        decoded = rapid.decode(model(images), anchors=anchors)
+        return {"boxes": decoded["boxes5"], "scores": decoded["conf"]}
     anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
     decoded = yolov3.decode_single_label(model(images), cfg.num_classes,
                                          anchors=anchors)
@@ -151,6 +157,11 @@ def _build_yolov3(cfg: ModelConfig) -> nn.Module:
     return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype)
 
 
+def _build_rapid(cfg: ModelConfig) -> nn.Module:
+    return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype,
+                         channels_per_anchor=rapid.CHANNELS_PER_ANCHOR)
+
+
 def _build_fcos(cfg: ModelConfig) -> nn.Module:
     return fcos.FCOS(cfg.num_classes, cfg.compute_dtype,
                      ltrb_decode=cfg.ltrb_decode, with_gate=cfg.multi_label)
@@ -162,5 +173,9 @@ register("yolov3", ModelConfig(name="yolov3", family="yolov3",
 register("yolov3_608", ModelConfig(name="yolov3_608", family="yolov3",
                                    num_classes=80, input_size=608,
                                    multi_label=False))(_build_yolov3)
+register("rapid", ModelConfig(name="rapid", family="rapid", num_classes=1,
+                              input_size=1024, rotated=True, conf_thres=0.3,
+                              pre_nms=512,
+                              class_names=("person",)))(_build_rapid)
 register("fcos", ModelConfig(name="fcos", family="fcos", num_classes=80,
                              input_size=608, conf_thres=0.05))(_build_fcos)

@@ -67,6 +67,21 @@ def letterbox_np(img: np.ndarray, input_size: int
     return letterbox_pil(Image.fromarray(img), input_size)
 
 
+def detections_to_original(dets: np.ndarray, info: LetterboxInfo
+                           ) -> np.ndarray:
+    """Map rows with cxcywh in columns 0:4 (rotated rows carry θ after
+    them, which a uniform letterbox ratio leaves as it is) from network
+    to original coords. Returns a float32 copy."""
+    out = np.array(dets, dtype=np.float32, copy=True)
+    if out.size == 0:
+        return out
+    out[:, 0] = (out[:, 0] - info.pad_x) / info.ratio
+    out[:, 1] = (out[:, 1] - info.pad_y) / info.ratio
+    out[:, 2] = out[:, 2] / info.ratio
+    out[:, 3] = out[:, 3] / info.ratio
+    return out
+
+
 def boxes_xyxy_to_original(boxes: np.ndarray, info: LetterboxInfo,
                            clip: bool = True) -> np.ndarray:
     """Map xyxy boxes in network coords to original coords (and clip)."""

@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA NMS and bias+GroupNorm+ReLU kernels
-against their plain versions, and the CUDA Detectors (yolov3, fcos)
-against the CPU ones. Every test skips on a host without a GPU. This
+"""The port on the card: the CUDA NMS, bias+GroupNorm+ReLU and
+rotated-NMS suppress kernels against their plain versions, and the CUDA
+Detectors (yolov3, fcos, rapid) against the CPU ones. Every test skips on a host without a GPU. This
 file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
@@ -15,11 +15,13 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     GN_GROUPS,
+    compare_rotated,
     gn_case,
     gn_error,
     golden_image,
     nms_cases,
     padded_canvas,
+    rotated_cases,
 )
 from mydetection_tpu_torch import Detector  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
@@ -27,6 +29,10 @@ from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu_plain,
 )
 from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain  # noqa: E402
+from mydetection_tpu_torch.kernels.rotated_nms import (  # noqa: E402
+    nms_from_iou_keep,
+    nms_from_iou_keep_plain,
+)
 
 THR = 0.45
 pytestmark = pytest.mark.cuda
@@ -66,6 +72,53 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         nms_keep(torch.zeros(1, 20000, 4, device=cuda),
                  torch.ones(1, 20000, dtype=torch.bool, device=cuda), THR)
+
+
+@pytest.mark.parametrize("k", [512, 200, 1344])
+def test_rotated_kernel_matches_plain(cuda, k):
+    """chip_smoke's hard cases (near-threshold entries, an asymmetric
+    matrix, all padding, few valid rows). K = 200 is not a multiple of
+    32; K = 1344 needs 226 KB of shared memory, near the limit."""
+    iou, valid = rotated_cases(np.random.RandomState(k), 12, k, device="cuda")
+    before = nms_from_iou_keep.launches
+    got = nms_from_iou_keep(iou, valid, THR)
+    torch.cuda.synchronize()
+    assert nms_from_iou_keep.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (12, k)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), nms_from_iou_keep_plain(iou, valid, THR).cpu().numpy())
+    assert not got[4].any() and got.any()
+
+
+def test_rotated_kernel_reads_earlier_row_later_column(cuda):
+    """On the asymmetric image the transposed matrix gives another
+    keep-set, and the kernel follows the plain version on both."""
+    iou, valid = rotated_cases(np.random.RandomState(3), 6, 128, device="cuda")
+    m, v = iou[3:4], valid[3:4]
+    t = m.transpose(1, 2).contiguous()
+    a, b = nms_from_iou_keep(m, v, THR), nms_from_iou_keep(t, v, THR)
+    assert not torch.equal(a, b)
+    assert torch.equal(a, nms_from_iou_keep_plain(m, v, THR))
+    assert torch.equal(b, nms_from_iou_keep_plain(t, v, THR))
+
+
+def test_rotated_kernel_rejects_bad_inputs(cuda):
+    iou = torch.zeros(2, 8, 8, device=cuda)
+    v = torch.ones(2, 8, dtype=torch.bool, device=cuda)
+    before = nms_from_iou_keep.launches
+    with pytest.raises(ValueError, match="float32"):
+        nms_from_iou_keep(iou.double(), v, THR)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_from_iou_keep(iou.transpose(1, 2), v, THR)
+    with pytest.raises(ValueError, match="valid"):
+        nms_from_iou_keep(iou, v.cpu(), THR)
+    with pytest.raises(ValueError, match="valid"):
+        nms_from_iou_keep(iou, v.float(), THR)
+    with pytest.raises(ValueError, match="shared memory"):
+        nms_from_iou_keep(torch.zeros(1, 1400, 1400, device=cuda),
+                          torch.ones(1, 1400, dtype=torch.bool, device=cuda),
+                          THR)
+    assert nms_from_iou_keep.launches == before
 
 
 # (B, H, W): the five FCOS@608 levels at batch 8, and a ragged one
@@ -137,6 +190,9 @@ def _cuda_vs_cpu(name, size, conf, canvas, info, kernel_launches):
     assert len(gpu) == len(cpu) > 0
     np.testing.assert_array_equal(gpu.classes, cpu.classes)
     np.testing.assert_allclose(gpu.scores, cpu.scores, rtol=0, atol=1e-4)
+    if cpu.boxes_rot is not None:
+        compare_rotated(gpu, cpu)
+        return
     np.testing.assert_allclose(gpu.boxes_xyxy, cpu.boxes_xyxy, rtol=0,
                                atol=1e-2)
 
@@ -151,3 +207,11 @@ def test_cuda_fcos_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("fcos", 320, 0.005, canvas, info,
                  {nms_keep: 1, bias_gn_relu: 40})
+
+
+def test_cuda_rapid_detector_matches_cpu(cuda):
+    """One launch of the suppress kernel; boxes_rot within chip_smoke's
+    rotated gates."""
+    canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
+    _cuda_vs_cpu("rapid", 320, 0.3, canvas, info, {nms_from_iou_keep: 1,
+                                                   nms_keep: 0})

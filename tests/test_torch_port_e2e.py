@@ -158,7 +158,7 @@ def test_seeded_init_is_deterministic():
     assert abs(float(w.std()) - (2.0 / (32 * 9)) ** 0.5) < 0.01
     assert not a["1.out.bias"].any()
     assert (a["0.bn.scale"] == 1).all() and (a["0.bn.var"] == 1).all()
-    assert list_models() == ["fcos", "yolov3", "yolov3_608"]
+    assert list_models() == ["fcos", "rapid", "yolov3", "yolov3_608"]
 
 
 def test_detector_defaults_to_cuda():
