@@ -14,19 +14,37 @@ Phases, one line each; any failure exits non-zero and prints no result:
               the five FCOS@608 level shapes at B=32 and a ragged 5x7
               at B=3, float32 and bf16, channels_last, inputs with a
               non-zero mean;
-  5. rotated  the CUDA rotated-NMS suppress kernel bit-equal to its plain
+  5. gn_train the forward-with-statistics kernel (y, mean, inv) and the
+              fused backward kernel (dx, dbias, dscale, dshift) against
+              their plain versions at the five FCOS@608 level shapes at
+              B=16 and the ragged 5x7 at B=3, float32 and bf16, with a
+              live ReLU mask and once with an NCHW dy; the backward
+              twice, bit for bit;
+  6. rotated  the CUDA rotated-NMS suppress kernel bit-equal to its plain
               version on B=32, K=512 IoU matrices (rotated person boxes
               with jittered duplicates, entries at iou_thres and one ulp
               around it, a deliberately asymmetric matrix, an
               all-padding image, fewer valid rows than 64);
-  6. parity   Detector("yolov3", 416), Detector("fcos", 320) and
+  7. parity   Detector("yolov3", 416), Detector("fcos", 320) and
               Detector("rapid", 320), float32 with TF32 off, on the card
               against the same seeded weights on the CPU, on procedural
               canvases;
-  7. main     each main path once — yolov3-416, fcos-608, rapid-1024 —
-              bf16 `detect_prepared` on 32 canvases, with every kernel
-              launch count reset just before and read just after; then
-              the batch's latency, img/s and device time.
+  8. train parity  fcos at 64², batch 2, 4 classes, float32 with TF32
+              off: `make_train_step` on the card against the CPU from
+              the same seeded weights and batch (the first step's loss
+              terms, gradients, update and BN statistics within the CPU
+              tests' gates), and the loss falling over four steps;
+  9. main     each detect main path once — yolov3-416, fcos-608,
+              rapid-1024 — bf16 `detect_prepared` on 32 canvases, with
+              every kernel launch count reset just before and read just
+              after; then the batch's latency, img/s and device time;
+ 10. train main  fcos-608 at full width and depth, bf16, batch 16,
+              `make_train_step` with `burn_in_lr` on a synthetic batch:
+              2 warm-up and 5 timed steps, each with its launch counts
+              reset before and read after; the step's latency, img/s,
+              device time split into forward, backward and optimizer,
+              peak memory; then both trainable GN kernels replayed on
+              the step's own inputs.
 
 Then one JSON line with a row per kernel, the card's name and power
 limit, and the result line `{"ok": true, "device": {...}}`. Needs no
@@ -56,10 +74,27 @@ OPS_PER_ROTATED_IOU = 915
 # bias add, sum, square, sum; subtract mean, x inv, x scale, + shift, max
 OPS_PER_GN_ELEMENT = 9
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's 1.98 GHz SM clock
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 GN_GROUPS = 32
 GN_F32_GATE = 1e-5          # max |kernel - plain| in float32
 GN_NEAR_ZERO = 1e-5         # bf16: one ulp of the output, plus this
+# backward: xhat 3, the mask 1, dxhat 1, the two group sums 3, dx 4, the
+# three channel sums 4 (counting each element's work once)
+OPS_PER_GN_BWD_ELEMENT = 16
+TRAIN_BATCH = 16            # the fcos-608 train main path
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# the small train step held CUDA against CPU (and, in the CPU tests,
+# the port against JAX): fcos at 64², batch 2, 4 classes, float32
+PARITY_SIZE, PARITY_BATCH, PARITY_CLASSES, PARITY_LR = 64, 2, 4, 1e-3
+# its gates; tests/test_torch_port_train.py's docstring has the
+# measurements behind them
+TRAIN_LOSS_RTOL = 5e-5      # each loss term, relative
+TRAIN_HEAD_OUT_GATE = 3e-4  # max-scaled gradient of the convs next to the loss
+TRAIN_COSINE_GATE = 0.995   # every parameter's gradient and update
+TRAIN_L2_GATE = 0.1         # relative L2 over all parameters
+TRAIN_BN_GATE = 1e-3        # max-scaled BN running statistics
+HEAD_OUT = ("head.cls_out", "head.box_out", "head.ctr_out", "head.scales")
 
 
 # ---------------------------------------------------------------------------
@@ -234,16 +269,42 @@ def rotated_cases(rng, b: int, k: int, thr: float = IOU_THRES,
     return iou, torch.from_numpy(valid).to(device)
 
 
+def train_batch(seed: int, b: int, size: int, num_classes: int,
+                max_gt: int = 100, max_boxes: int = 20):
+    """A synthetic training batch: uint8 (b, size, size, 3) noise
+    canvases and 1 to max_boxes GT boxes an image, (cx, cy, w, h) in net
+    pixels (sides size/32 to size/2, centres anywhere on the canvas),
+    classes in [0, num_classes), padded to max_gt with zeros and
+    gt_valid False, as the JAX package's TrainLoader pads them."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)
+    boxes = np.zeros((b, max_gt, 4), np.float32)
+    classes = np.zeros((b, max_gt), np.int32)
+    valid = np.zeros((b, max_gt), bool)
+    for i in range(b):
+        k = rng.randint(1, max_boxes + 1)
+        c = rng.uniform(0, size, (k, 2))
+        wh = rng.uniform(size / 32, size / 2, (k, 2))
+        boxes[i, :k] = np.concatenate([c, wh], 1)
+        classes[i, :k] = rng.randint(0, num_classes, k)
+        valid[i, :k] = True
+    return images, boxes, classes, valid
+
+
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of `fn()` over `iters` runs, by CUDA events."""
+    """Mean device time of `fn()` over `iters` runs, by CUDA events. A
+    sleep kernel ahead of the start event keeps the card busy while the
+    host enqueues the runs, so short kernels are timed back to back and
+    not at the pace of the host's launches."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -311,14 +372,27 @@ def rotated_iou_bound_ms(boxes: torch.Tensor) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gn_bound_ms(calls) -> tuple[float, str]:
-    """Least time for these bias_gn_relu calls: bytes (x read once, the
-    output written once, bias/scale/shift read once) over HBM rate,
-    against OPS_PER_GN_ELEMENT float32 operations an element over the
-    fp32 rate."""
-    nbytes = sum(2 * x.numel() * x.element_size() + 3 * b.numel() * 4
-                 for x, b, _, _ in calls)
-    ops = sum(OPS_PER_GN_ELEMENT * x.numel() for x, _, _, _ in calls)
+def gn_bound_ms(calls, *, stats: bool = False,
+                backward: bool = False) -> tuple[float, str]:
+    """Least time for these GN calls: bytes over HBM rate against
+    float32 operations over the fp32 rate. Forward (args x, bias, scale,
+    shift): x read once, the output written once, the three (C,)
+    parameters read once, with `stats` the (B, G) mean and inv written
+    once; OPS_PER_GN_ELEMENT an element. Backward (args x, y, dy, bias,
+    scale, mean, inv): x, y, dy read once, dx written once, bias, scale,
+    mean, inv read and the three (C,) gradients written once;
+    OPS_PER_GN_BWD_ELEMENT an element."""
+    nbytes = ops = 0
+    for args in calls:
+        x, c = args[0], args[0].shape[1]
+        group_stats = 2 * x.shape[0] * GN_GROUPS * 4
+        if backward:
+            nbytes += 4 * x.numel() * x.element_size() + 5 * c * 4 + group_stats
+            ops += OPS_PER_GN_BWD_ELEMENT * x.numel()
+        else:
+            nbytes += (2 * x.numel() * x.element_size() + 3 * c * 4
+                       + (group_stats if stats else 0))
+            ops += OPS_PER_GN_ELEMENT * x.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -410,6 +484,210 @@ def phase_gn() -> None:
           f"{[s for s in shapes]} x 256 ch, {GN_GROUPS} groups "
           f"(f32 gate {GN_F32_GATE}, bf16 gate 1 ulp + {GN_NEAR_ZERO}): "
           f"{', '.join(report)}", flush=True)
+
+
+def max_scaled(got, ref) -> float:
+    """max |got - ref| over max |ref|, for tensors or numpy arrays."""
+    g, r = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    return float((g - r).abs().max() / (r.abs().max() + 1e-30))
+
+
+def gn_train_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
+    """(max-scaled |got - ref|, within the gate) for the trainable GN's
+    outputs. float32: GN_F32_GATE of the reference's max |value| — the
+    kernel and the plain version sum in other orders. bf16 (dx): one
+    bf16 ulp of the larger value plus GN_F32_GATE of the max |value|,
+    where float32 results a few ulps apart round to neighbouring bf16
+    values."""
+    err = max_scaled(got, ref)
+    if got.dtype == torch.float32:
+        return err, err <= GN_F32_GATE
+    g, r = got.float(), ref.float()
+    big = torch.maximum(g.abs(), r.abs())
+    ulp = (big.view(torch.int32) & 0x7F800000).view(torch.float32) * 2.0 ** -7
+    floor = GN_F32_GATE * float(r.abs().max())
+    return err, bool(((g - r).abs() <= ulp + floor).all())
+
+
+def gn_train_case(gen, b: int, h: int, w: int, dtype, channels_last_dy=True):
+    """A backward call's inputs on the card: gn_case's x, bias, scale and
+    shift, the forward-with-statistics kernel's y, mean and inv (a live
+    ReLU mask), and dy N(0, 1) in channels_last, or contiguous NCHW."""
+    from mydetection_tpu_torch.kernels.gn import bias_gn_relu_fwd_stats
+
+    x, bias, scale, shift = gn_case(gen, b, h, w, dtype)
+    y, mean, inv = bias_gn_relu_fwd_stats(x, bias, scale, shift,
+                                          groups=GN_GROUPS)
+    dy = torch.randn(x.shape, device="cuda", generator=gen).to(dtype)
+    if channels_last_dy:
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    return (x, bias, scale, shift), (x, y, dy, bias, scale, mean, inv)
+
+
+def check_gn_train_case(fwd_args, bwd_args) -> tuple[float, float]:
+    """#4 and #5 against their plain versions on one case, and #5 twice
+    bit for bit; returns the worst (forward, backward) error."""
+    from mydetection_tpu_torch.kernels.gn import (
+        bias_gn_relu_bwd,
+        bias_gn_relu_bwd_plain,
+        bias_gn_relu_fwd_stats,
+        bias_gn_relu_fwd_stats_plain,
+    )
+
+    shape = tuple(fwd_args[0].shape)
+    got = bias_gn_relu_fwd_stats(*fwd_args, groups=GN_GROUPS)
+    ref = bias_gn_relu_fwd_stats_plain(*fwd_args, groups=GN_GROUPS)
+    torch.cuda.synchronize()
+    y_err, y_ok = gn_error(got[0], ref[0])
+    errs = [max_scaled(a, b) for a, b in zip(got[1:], ref[1:])]
+    if not y_ok or max(errs) > GN_F32_GATE or not got[0].is_contiguous(
+            memory_format=torch.channels_last):
+        raise AssertionError(f"bias_gn_relu_fwd_stats {got[0].dtype} at "
+                             f"{shape}: y max |d| {y_err:.3g}, mean/inv "
+                             f"max-scaled {errs} outside their gates, or y "
+                             f"left channels_last")
+    fwd = max([y_err] + errs)
+    got = bias_gn_relu_bwd(*bwd_args, groups=GN_GROUPS)
+    again = bias_gn_relu_bwd(*bwd_args, groups=GN_GROUPS)
+    ref = bias_gn_relu_bwd_plain(*bwd_args, groups=GN_GROUPS)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"bias_gn_relu_bwd at {shape} is not "
+                             f"bit-reproducible across two runs")
+    bwd = 0.0
+    for name, a, b in zip(("dx", "dbias", "dscale", "dshift"), got, ref):
+        err, ok = gn_train_error(a, b)
+        if not ok or a.dtype != b.dtype:
+            raise AssertionError(f"bias_gn_relu_bwd {a.dtype} at {shape}: "
+                                 f"{name} max-scaled |d| {err:.3g} outside "
+                                 f"its gate")
+        bwd = max(bwd, err)
+    if not got[0].is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError("bias_gn_relu_bwd's dx left channels_last")
+    return fwd, bwd
+
+
+def phase_gn_train() -> None:
+    from mydetection_tpu_torch.models.fcos import level_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(TRAIN_BATCH, h, w) for h, w in level_shapes(608)] + [(3, 5, 7)]
+    report = []
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = [0.0, 0.0]
+        for b, h, w in shapes:
+            errs = check_gn_train_case(*gn_train_case(gen, b, h, w, dtype))
+            worst = [max(a, e) for a, e in zip(worst, errs)]
+        errs = check_gn_train_case(*gn_train_case(gen, *shapes[1], dtype,
+                                                  channels_last_dy=False))
+        worst = [max(a, e) for a, e in zip(worst, errs)]
+        report.append(f"{str(dtype)[6:]} fwd {worst[0]:.3g}, bwd {worst[1]:.3g}")
+    print(f"gn_train: bias_gn_relu_fwd_stats (y, mean, inv) and "
+          f"bias_gn_relu_bwd (dx, dbias, dscale, dshift) within their gates "
+          f"of plain at {shapes} x 256 ch, {GN_GROUPS} groups, live ReLU "
+          f"masks, one NCHW dy per dtype; bwd bit-reproducible over two "
+          f"runs: {', '.join(report)}", flush=True)
+
+
+def cosine(a, b) -> float:
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-300))
+
+
+def rel_l2(got: dict, ref: dict) -> float:
+    """Relative L2 distance over every entry of two name → array dicts."""
+    num = sum(float(((np.asarray(got[k], np.float64) - ref[k]) ** 2).sum())
+              for k in ref)
+    den = sum(float((np.asarray(ref[k], np.float64) ** 2).sum()) for k in ref)
+    return (num / den) ** 0.5
+
+
+def compare_train_step(got: dict, ref: dict) -> str:
+    """One train step against a reference run from the same weights and
+    batch, each a dict of "terms" (floats), "grads", "delta" (the
+    parameters' update) and "bufs" (BN running statistics), name → numpy.
+    The gates are the TRAIN_* constants. Returns the report, raises
+    outside a gate."""
+    bad = []
+    terms = {k: abs(got["terms"][k] - v) / abs(v) for k, v in ref["terms"].items()}
+    if max(terms.values()) > TRAIN_LOSS_RTOL:
+        bad.append(f"loss terms relative {terms}")
+    near = max(max_scaled(got["grads"][k], v) for k, v in ref["grads"].items()
+               if k.startswith(HEAD_OUT))
+    if near > TRAIN_HEAD_OUT_GATE:
+        bad.append(f"head output gradients max-scaled {near:.3g}")
+    cos = min((cosine(got[w][k], ref[w][k]), f"{w} {k}")
+              for w in ("grads", "delta") for k in ref[w])
+    if cos[0] < TRAIN_COSINE_GATE:
+        bad.append(f"cosine {cos}")
+    l2 = max(rel_l2(got[w], ref[w]) for w in ("grads", "delta"))
+    if l2 > TRAIN_L2_GATE:
+        bad.append(f"relative L2 {l2:.3g}")
+    bn = max(max_scaled(got["bufs"][k], v) for k, v in ref["bufs"].items())
+    if bn > TRAIN_BN_GATE:
+        bad.append(f"BN running statistics max-scaled {bn:.3g}")
+    if bad:
+        raise AssertionError("train step outside its gates: " + "; ".join(bad))
+    return (f"loss terms within {max(terms.values()):.3g} relative, head "
+            f"output gradients {near:.3g} max-scaled, every gradient and "
+            f"update cosine >= {cos[0]:.6f}, relative L2 {l2:.3g}, BN "
+            f"statistics {bn:.3g}")
+
+
+def parity_train_run(device: str, steps: int = 4) -> dict:
+    """The small fcos train step on `device` from `init_weights(seed 0)`
+    and `train_batch(0, ...)`: the first step phase by phase (terms,
+    gradients, update, BN statistics, the kernels' launches), then
+    `steps - 1` more on the same batch; "totals" has every step's loss."""
+    from mydetection_tpu_torch import kernels
+    from mydetection_tpu_torch.models.layers import init_weights
+    from mydetection_tpu_torch.registry import get_model
+    from mydetection_tpu_torch.training import make_train_step
+
+    model = get_model("fcos", num_classes=PARITY_CLASSES,
+                      compute_dtype=torch.float32, input_size=PARITY_SIZE)
+    init_weights(model, 0)
+    step = make_train_step(model, input_size=PARITY_SIZE, device=device)
+    data = train_batch(0, PARITY_BATCH, PARITY_SIZE, PARITY_CLASSES)
+    kernels.reset_launches()
+    terms = step.forward(*step.batch(*data))
+    grads = step.backward(terms)
+    p0 = {k: p.detach().clone() for k, p in step.params.items()}
+    step.update(grads, PARITY_LR)
+    host = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    out = {"terms": {k: float(v.detach()) for k, v in terms.items()},
+           "grads": {k: host(g) for k, g in grads.items()},
+           "delta": {k: host(p - p0[k]) for k, p in step.params.items()},
+           "bufs": {k: host(b) for k, b in model.named_buffers()},
+           "launches": {fn.__name__: fn.launches for fn in kernels.KERNELS}}
+    out["totals"] = [out["terms"]["total"]] + [
+        float(step(*data, PARITY_LR)["total"]) for _ in range(steps - 1)]
+    return out
+
+
+def phase_train_parity() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = parity_train_run("cpu")
+    gpu = parity_train_run("cuda")
+    want = {"bias_gn_relu_fwd_stats": 40, "bias_gn_relu_bwd": 40}
+    want = {k: want.get(k, 0) for k in gpu["launches"]}
+    if gpu["launches"] != want:
+        raise AssertionError(f"the CUDA train step launched {gpu['launches']}, "
+                             f"expected {want}")
+    report = compare_train_step(gpu, cpu)
+    for name, run in (("cuda", gpu), ("cpu", cpu)):
+        t = run["totals"]
+        if not (np.isfinite(t).all() and t[-1] < t[0]):
+            raise AssertionError(f"{name} train loss did not fall: {t}")
+    print(f"train parity: fcos-{PARITY_SIZE} batch {PARITY_BATCH}, "
+          f"{PARITY_CLASSES} classes, f32 (TF32 off), make_train_step cuda "
+          f"against cpu from the same seeded weights and batch, first step: "
+          f"{report}; launches {gpu['launches']}; total loss over "
+          f"{len(gpu['totals'])} steps at lr {PARITY_LR}: cuda "
+          f"{[round(v, 4) for v in gpu['totals']]}, cpu "
+          f"{[round(v, 4) for v in cpu['totals']]}", flush=True)
 
 
 def phase_rotated(rng) -> None:
@@ -762,6 +1040,220 @@ def rotated_row(captured: dict) -> dict:
     return row
 
 
+def train_step_gn_inputs(step, data, lr: float) -> dict:
+    """Run one train step with the FCOS towers' `BiasGNReLU` swapped for
+    a subclass that records what reaches the two trainable GN kernels:
+    {"fwd": [(x, bias, scale, shift)] * 40, "bwd": [(x, y, dy, bias,
+    scale, mean, inv)] * 40}, dy as autograd handed it over."""
+    from mydetection_tpu_torch.kernels.gn import BiasGNReLU
+    from mydetection_tpu_torch.models import fcos as fcos_mod
+
+    captured = {"fwd": [], "bwd": []}
+
+    class Recording(BiasGNReLU):
+        @staticmethod
+        def forward(ctx, x, bias, scale, shift, groups):
+            captured["fwd"].append((x, bias, scale, shift))
+            return BiasGNReLU.forward(ctx, x, bias, scale, shift, groups)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, y, *rest = ctx.saved_tensors
+            captured["bwd"].append((x, y, dy, *rest))
+            return BiasGNReLU.backward(ctx, dy)
+
+    fcos_mod.BiasGNReLU = Recording
+    try:
+        step(*data, lr)
+    finally:
+        fcos_mod.BiasGNReLU = BiasGNReLU
+    return captured
+
+
+def phase_train_main(smi: str) -> dict:
+    """The train main path: fcos-608 at full width and depth, bf16,
+    batch TRAIN_BATCH, `make_train_step` with `burn_in_lr`, on a
+    synthetic batch. Every step's launch counts are reset just before it
+    and read just after (the GN forward-with-statistics and backward
+    kernels 40 each, every other kernel none); TRAIN_WARMUP steps, then
+    TRAIN_TIMED timed ones; then one more step that captures both
+    kernels' inputs. Returns {"fwd": [...], "bwd": [...], "launches"}."""
+    from mydetection_tpu_torch import kernels
+    from mydetection_tpu_torch.models.layers import init_weights
+    from mydetection_tpu_torch.registry import get_model
+    from mydetection_tpu_torch.training import burn_in_lr, make_train_step
+
+    model = get_model("fcos")                 # 80 classes, bf16, 608
+    init_weights(model, 0)
+    size = model.config.input_size
+    step = make_train_step(model, input_size=size)
+    data = train_batch(2, TRAIN_BATCH, size, model.config.num_classes)
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    want.update(bias_gn_relu_fwd_stats=40, bias_gn_relu_bwd=40)
+    lat, dev, totals = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        if i == TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        lr = burn_in_lr(i + 1, base_lr=0.01)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        batch = step.batch(*data)
+        ev[0].record()
+        terms = step.forward(*batch)
+        ev[1].record()
+        grads = step.backward(terms)
+        ev[2].record()
+        step.update(grads, lr)
+        ev[3].record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        if launches != want:
+            raise AssertionError(f"train step {i} launched {launches}, "
+                                 f"expected {want}")
+        vals = {k: float(v.detach()) for k, v in terms.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train step {i} loss terms {vals}")
+        totals.append(vals["total"])
+        if i >= TRAIN_WARMUP:
+            lat.append(t1 - t0)
+            dev.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    peak = torch.cuda.max_memory_allocated()
+    clocks = smi_line("clocks.sm,power.draw,temperature.gpu")
+    captured = train_step_gn_inputs(
+        step, data, burn_in_lr(TRAIN_WARMUP + TRAIN_TIMED + 1, base_lr=0.01))
+    captured["launches"] = launches
+    med = float(np.median(lat))
+    split = np.median(np.array(dev), axis=0)
+    print(f"train main: fcos-{size} bf16 batch {TRAIN_BATCH}, make_train_step "
+          f"with burn_in_lr, {TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed "
+          f"steps, launches per step {launches}, losses finite (total "
+          f"{[round(v, 4) for v in totals]}); step latency median "
+          f"{med * 1e3:.2f} ms (min {min(lat) * 1e3:.2f}, max "
+          f"{max(lat) * 1e3:.2f}), {TRAIN_BATCH / med:.1f} img/s; device "
+          f"(medians) forward {split[0]:.2f} ms, backward {split[1]:.2f} ms, "
+          f"optimizer {split[2]:.2f} ms; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; on {smi} (sm clock, power, temp after: "
+          f"{clocks})", flush=True)
+    return captured
+
+
+@torch.no_grad()
+def gn_fwd_stats_row(captured: dict) -> dict:
+    """The forward-with-statistics kernel at the train main path's own
+    inputs: the 40 calls of one step, summed."""
+    import torch.nn.functional as F
+
+    from mydetection_tpu_torch.kernels.gn import (
+        bias_gn_relu_fwd_stats,
+        bias_gn_relu_fwd_stats_plain,
+    )
+
+    calls = captured["fwd"]
+    err = 0.0
+    for args in calls:
+        got = bias_gn_relu_fwd_stats(*args, groups=GN_GROUPS)
+        ref = bias_gn_relu_fwd_stats_plain(*args, groups=GN_GROUPS)
+        e, ok = gn_error(got[0], ref[0])
+        stats = max(max_scaled(a, b) for a, b in zip(got[1:], ref[1:]))
+        if not ok or stats > GN_F32_GATE:
+            raise AssertionError(f"bias_gn_relu_fwd_stats outside its gates "
+                                 f"on the train path's {tuple(args[0].shape)} "
+                                 f"input: y {e:.3g}, mean/inv {stats:.3g}")
+        err = max(err, e)
+    lib_in = [(x + b.to(x.dtype)[:, None, None], s.to(x.dtype), t.to(x.dtype))
+              for x, b, s, t in calls]
+    ms = cuda_ms(lambda: [bias_gn_relu_fwd_stats(*a, groups=GN_GROUPS)
+                          for a in calls], 5)
+    plain_ms = cuda_ms(lambda: [bias_gn_relu_fwd_stats_plain(*a, groups=GN_GROUPS)
+                                for a in calls], 3)
+    lib_ms = cuda_ms(lambda: [F.group_norm(x, GN_GROUPS, s, t, 1e-5)
+                              for x, s, t in lib_in], 5)
+    bound, bound_by = gn_bound_ms(calls, stats=True)
+    print(f"gn fwd_stats on the train main path: {len(calls)} calls, kernel "
+          f"{ms:.4f} ms summed (bound {bound:.4f} ms by {bound_by}), plain "
+          f"{plain_ms:.3f} ms, F.group_norm {lib_ms:.4f} ms", flush=True)
+    return {
+        "name": "bias_gn_relu_fwd_stats", "route": "cuda",
+        "source": "mydetection_tpu_torch/kernels/csrc/gn.cu",
+        "replaces": "mydetection_tpu/ops/pallas/gn_kernel.py:141",
+        "launches": captured["launches"]["bias_gn_relu_fwd_stats"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        "note": "times sum the 40 calls of one fcos-608 batch-16 bf16 train "
+                "step; library_ms is F.group_norm on x + bias, which leaves "
+                "out the bias add, the ReLU and the saved statistics",
+    }
+
+
+@torch.no_grad()
+def gn_bwd_row(captured: dict) -> dict:
+    """The fused backward kernel at the train main path's own inputs:
+    the 40 calls of one step, summed."""
+    from mydetection_tpu_torch.kernels.gn import (
+        bias_gn_relu_bwd,
+        bias_gn_relu_bwd_plain,
+    )
+
+    calls = captured["bwd"]
+    err = 0.0
+    layouts = set()
+    for args in calls:
+        layouts.add(args[2].is_contiguous(memory_format=torch.channels_last))
+        got = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
+        again = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
+        ref = bias_gn_relu_bwd_plain(*args, groups=GN_GROUPS)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("bias_gn_relu_bwd is not bit-reproducible on "
+                                 "the train path's inputs")
+        for a, b in zip(got, ref):
+            e, ok = gn_train_error(a, b)
+            if not ok:
+                raise AssertionError(f"bias_gn_relu_bwd outside its gate on "
+                                     f"the train path's {tuple(args[0].shape)} "
+                                     f"input: {e:.3g}")
+            err = max(err, e)
+    # the library yardstick: aten's GroupNorm backward on contiguous NCHW
+    # x + bias with its own statistics (no ReLU mask, no bias gradient)
+    lib = []
+    for x, _, dy, bias, scale, _, _ in calls:
+        b, c, h, w = x.shape
+        xb = (x + bias.to(x.dtype)[:, None, None]).contiguous()
+        wt = scale.to(x.dtype)
+        _, mean, rstd = torch.ops.aten.native_group_norm(
+            xb, wt, None, b, c, h * w, GN_GROUPS, 1e-5)
+        lib.append((dy.contiguous(), xb, mean, rstd, wt, b, c, h * w))
+    ms = cuda_ms(lambda: [bias_gn_relu_bwd(*a, groups=GN_GROUPS)
+                          for a in calls], 5)
+    plain_ms = cuda_ms(lambda: [bias_gn_relu_bwd_plain(*a, groups=GN_GROUPS)
+                                for a in calls], 3)
+    lib_ms = cuda_ms(lambda: [torch.ops.aten.native_group_norm_backward(
+        dy, xb, mean, rstd, wt, b, c, hw, GN_GROUPS, [True, True, True])
+        for dy, xb, mean, rstd, wt, b, c, hw in lib], 5)
+    bound, bound_by = gn_bound_ms(calls, backward=True)
+    print(f"gn bwd on the train main path: {len(calls)} calls (dy "
+          f"channels_last: {sorted(layouts)}), kernel {ms:.4f} ms summed "
+          f"(bound {bound:.4f} ms by {bound_by}), plain {plain_ms:.3f} ms, "
+          f"aten native_group_norm_backward {lib_ms:.4f} ms; bit-reproducible, "
+          f"max-scaled |d| {err:.3g}", flush=True)
+    return {
+        "name": "bias_gn_relu_bwd", "route": "cuda",
+        "source": "mydetection_tpu_torch/kernels/csrc/gn.cu",
+        "replaces": "mydetection_tpu/ops/pallas/gn_kernel.py:149",
+        "launches": captured["launches"]["bias_gn_relu_bwd"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        "note": "times sum the 40 calls of one fcos-608 batch-16 bf16 train "
+                "step; max_abs_err is max-scaled over dx, dbias, dscale, "
+                "dshift; the two-pass design reads x, y and dy twice, the "
+                "bound once; library_ms is aten.native_group_norm_backward "
+                "on contiguous x + bias, which leaves out the ReLU mask and "
+                "the bias gradient",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -779,8 +1271,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; {' | '.join(ptxas)}", flush=True)
     phase_kernel(np.random.RandomState(0))
     phase_gn()
+    phase_gn_train()
     phase_rotated(np.random.RandomState(0))
     phase_parity()
+    phase_train_parity()
     yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
     rows = [nms_row(yolo)]
     del yolo
@@ -794,6 +1288,9 @@ def main() -> int:
     del fcos
     rapid = drive_main("rapid", 1024, 0.3, smi, {"nms_from_iou_keep": 1})
     rows.append(rotated_row(rapid))
+    del rapid
+    train = phase_train_main(smi)
+    rows += [gn_fwd_stats_row(train), gn_bwd_row(train)]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

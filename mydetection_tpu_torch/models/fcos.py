@@ -1,12 +1,14 @@
-"""FCOS: ResNet-50 + FPN P3–P7 + two GroupNorm conv towers (inference).
+"""FCOS: ResNet-50 + FPN P3–P7 + two GroupNorm conv towers, and its loss.
 
 A port of `mydetection_tpu/models/fcos.py` (`generate_locations`,
 `group_norm`, `_tower`, `_head_conv`, `apply`, `decode_boxes`,
-`decode`) and of the registry's `_build_fcos`. Each tower conv runs
-without its bias; the bias, the GroupNorm and the ReLU after it are one
-call of `kernels.gn.bias_gn_relu` (the CUDA kernel on the card, its
-plain version on the CPU), as the JAX package's fused branch does: 8
-calls per level, 40 per forward.
+`decode`, `_assign`, `loss`) and of the registry's `_build_fcos`. Each
+tower conv runs without its bias; the bias, the GroupNorm and the ReLU
+after it are one call of `kernels.gn.bias_gn_relu` (the CUDA kernel on
+the card, its plain version on the CPU), as the JAX package's fused
+branch does: 8 calls per level, 40 per forward. Under autograd the call
+is `BiasGNReLU`, the forward-with-statistics kernel paired with the
+fused backward kernel.
 
 The heads run NCHW (channels_last on the card); each output is permuted
 to NHWC before it is flattened, so locations come out level-major, then
@@ -24,13 +26,23 @@ import numpy as np
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.kernels.gn import bias_gn_relu
+from mydetection_tpu_torch.kernels.gn import BiasGNReLU, bias_gn_relu
+from mydetection_tpu_torch.losses import (
+    bce_with_logits,
+    focal_loss,
+    giou_loss,
+    take_along_dim,
+)
 from mydetection_tpu_torch.models.fpn import FPN, conv_bias
 from mydetection_tpu_torch.models.layers import conv2d
 from mydetection_tpu_torch.models.resnet import ResNet, prepare_input
+from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
 
 STRIDES = (8, 16, 32, 64, 128)
+# per-level regression range for max(l, t, r, b)
+LEVEL_RANGES = ((0, 64), (64, 128), (128, 256), (256, 512), (512, 1e8))
 PRIOR_PROB = 0.01
+CENTER_RADIUS = 1.5  # center-sampling radius in stride units
 GN_GROUPS = 32
 HEAD_INIT_STD = 0.01  # N(0, 0.01) tower and out convs (torchvision's head)
 
@@ -89,7 +101,9 @@ def _head_conv(c_in: int, c_out: int, bias: float = 0.0) -> nn.Conv2d:
 
 
 class Tower(nn.Module):
-    """4 × (3x3 conv → bias + GroupNorm(32) + ReLU)."""
+    """4 × (3x3 conv → bias + GroupNorm(32) + ReLU). Under autograd the
+    bias, GN and ReLU are `BiasGNReLU` (the forward-with-statistics and
+    fused backward kernels on the card); otherwise `bias_gn_relu`."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -100,8 +114,12 @@ class Tower(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(4):
             conv, gn = getattr(self, f"conv{i}"), getattr(self, f"gn{i}")
-            x = bias_gn_relu(conv2d(x, conv.weight), conv.bias, gn.scale,
-                             gn.bias, groups=GN_GROUPS)
+            y = conv2d(x, conv.weight)
+            args = (y, conv.bias, gn.scale, gn.bias)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+                x = BiasGNReLU.apply(*args, GN_GROUPS)
+            else:
+                x = bias_gn_relu(*args, groups=GN_GROUPS)
         return x
 
 
@@ -166,11 +184,15 @@ class FCOS(nn.Module):
         self.fpn = FPN()
         self.head = FCOSHead(num_classes)
 
-    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, images: torch.Tensor, *,
+                with_gate: bool | None = None) -> tuple[torch.Tensor, ...]:
+        """uint8 NHWC images → raw heads; `with_gate` None = the
+        config's (the loss asks for none)."""
         x = prepare_input(images.permute(0, 3, 1, 2), self.compute_dtype)
         return self.head(self.fpn(self.backbone(x)),
                          ltrb_decode=self.ltrb_decode,
-                         with_gate=self.with_gate)
+                         with_gate=self.with_gate if with_gate is None
+                         else with_gate)
 
 
 def decode_boxes(ltrb: torch.Tensor, locations: torch.Tensor) -> torch.Tensor:
@@ -187,3 +209,92 @@ def decode(cls_logits: torch.Tensor, ltrb: torch.Tensor,
     scores = (torch.sigmoid(cls_logits.float())
               * torch.sigmoid(ctr_logits)[..., None])
     return {"boxes": decode_boxes(ltrb, locations), "scores": scores}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def assign(locations: torch.Tensor, strides: torch.Tensor,
+           gt_xyxy: torch.Tensor, gt_valid: torch.Tensor
+           ) -> tuple[torch.Tensor, ...]:
+    """FCOS target assignment for a batch, `fcos.py::_assign`: a
+    location's candidates are the valid GT boxes it lies inside, within
+    1.5 strides of their centre and in its level's range of max(l, t, r,
+    b); it takes the smallest-area one, the first index on ties (no
+    candidate: every area is the 1e18 sentinel, index 0). Returns
+    (positive (B, N) bool, matched (B, N) int64, target ltrb (B, N, 4),
+    centerness target (B, N))."""
+    x, y = locations[:, 0], locations[:, 1]                   # (N,)
+    x1, y1, x2, y2 = gt_xyxy.unbind(-1)                       # (B, M)
+    l = x[None, :, None] - x1[:, None, :]                     # (B, N, M)
+    t = y[None, :, None] - y1[:, None, :]
+    r = x2[:, None, :] - x[None, :, None]
+    b = y2[:, None, :] - y[None, :, None]
+    ltrb = torch.stack([l, t, r, b], -1)                      # (B, N, M, 4)
+    inside = ltrb.amin(-1) > 0
+
+    cx = (x1 + x2) * 0.5
+    cy = (y1 + y2) * 0.5
+    rad = CENTER_RADIUS * strides[None, :, None]
+    near = ((torch.abs(x[None, :, None] - cx[:, None, :]) < rad)
+            & (torch.abs(y[None, :, None] - cy[:, None, :]) < rad))
+
+    maxd = ltrb.amax(-1)                                      # (B, N, M)
+    lo = torch.zeros_like(strides)
+    hi = torch.zeros_like(strides)
+    for s, (a, c) in zip(STRIDES, LEVEL_RANGES):
+        lo = torch.where(strides == s, a, lo)
+        hi = torch.where(strides == s, c, hi)
+    in_range = (maxd >= lo[None, :, None]) & (maxd <= hi[None, :, None])
+
+    candidate = inside & near & in_range & gt_valid[:, None, :]
+    area = (x2 - x1) * (y2 - y1)                              # (B, M)
+    cand_area = torch.where(candidate, area[:, None, :],
+                            torch.tensor(1e18, device=area.device))
+    matched = torch.argmin(cand_area, -1)                     # (B, N)
+    positive = candidate.any(-1)
+
+    sel = take_along_dim(gt_xyxy, matched)                    # (B, N, 4)
+    tgt = torch.stack([x[None, :] - sel[..., 0], y[None, :] - sel[..., 1],
+                       sel[..., 2] - x[None, :], sel[..., 3] - y[None, :]],
+                      -1)                                     # (B, N, 4)
+    lr = tgt[..., 0::2]
+    tb = tgt[..., 1::2]
+    ctr_tgt = torch.sqrt(torch.clamp(
+        (lr.amin(-1) / torch.clamp(lr.amax(-1), min=1e-8))
+        * (tb.amin(-1) / torch.clamp(tb.amax(-1), min=1e-8)), 0.0, 1.0))
+    return positive, matched, tgt, ctr_tgt
+
+
+def loss(cls_logits: torch.Tensor, ltrb_pred: torch.Tensor,
+         ctr_logits: torch.Tensor, locations: torch.Tensor,
+         strides: torch.Tensor, gt_boxes: torch.Tensor,
+         gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+         num_classes: int = 80) -> dict:
+    """Focal (cls) + centerness-weighted GIoU (box) + BCE (centerness)
+    under the FCOS assignment, `fcos.py::loss`. gt_boxes (B, M, 4)
+    cxcywh net pixels, padded, with gt_valid (B, M) bool and
+    gt_classes (B, M) int. Returns {"cls", "box", "ctr", "total"}."""
+    gt_xyxy = cxcywh_to_xyxy(gt_boxes)
+    positive, matched, tgt_ltrb, ctr_tgt = assign(locations, strides,
+                                                  gt_xyxy, gt_valid)
+
+    tgt_cls = take_along_dim(gt_classes, matched)
+    # jax.nn.one_hot: an out-of-range class (padding) is all zeros
+    onehot = (tgt_cls[..., None] == torch.arange(
+        num_classes, device=tgt_cls.device)).float()
+    cls_onehot = onehot * positive[..., None]
+    num_pos = torch.clamp(positive.sum().float(), min=1.0)
+    cls_loss = focal_loss(cls_logits, cls_onehot).sum() / num_pos
+
+    pred_xyxy = decode_boxes(ltrb_pred, locations)
+    tgt_xyxy = decode_boxes(tgt_ltrb, locations)
+    g = giou_loss(pred_xyxy, tgt_xyxy)                        # (B, N)
+    w = ctr_tgt * positive
+    box_loss = (g * w).sum() / torch.clamp(w.sum(), min=1e-6)
+
+    ctr_bce = bce_with_logits(ctr_logits, ctr_tgt)
+    ctr_loss = (ctr_bce * positive).sum() / num_pos
+    return {"cls": cls_loss, "box": box_loss, "ctr": ctr_loss,
+            "total": cls_loss + box_loss + ctr_loss}

@@ -5,8 +5,12 @@ A port of `mydetection_tpu/models/layers.py` that keeps its arithmetic:
   * convs pad symmetrically by (k-1)//2 at every stride — never
     `padding="same"`, which pads a stride-2 conv on an even input
     asymmetrically and shifts every downsampled map by one pixel;
-  * eval BatchNorm is the fold `scale·rsqrt(var+1e-5)`, `bias-mean·scale`,
-    then `x*scale + shift` in the activation dtype;
+  * BatchNorm is the fold `scale·rsqrt(var+1e-5)`, `bias-mean·scale`,
+    then `x*scale + shift` in the activation dtype: from the running
+    statistics in eval mode, from the batch's (float32 mean and biased
+    variance, gradients through both) in train mode, which also moves
+    the running statistics by momentum 0.9 toward the batch mean and
+    the unbiased (n/(n-1)) variance;
   * LeakyReLU is `where(x >= 0, x, 0.1x)`;
   * max pooling pads symmetrically with -inf (torch's MaxPool2d);
   * the ResNet input is `x/255`, then `(x - mean) / std` with ImageNet's
@@ -26,6 +30,7 @@ from torch import nn
 
 LEAKY_SLOPE = 0.1
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -81,8 +86,10 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm keyed like the JAX tree: `scale`, `bias`
-    (learnable) and the running `mean`, `var`."""
+    """BatchNorm keyed like the JAX tree: `scale`, `bias` (learnable)
+    and the running `mean`, `var` (buffers). Train mode is `layers.py::
+    batch_norm(train=True)` written out in tensor ops, not
+    `F.batch_norm`, whose arithmetic and dtypes differ."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -92,8 +99,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x, *bn_fold(self.scale, self.bias, self.mean,
-                                      self.var))
+        if not self.training:
+            return batch_norm(x, *bn_fold(self.scale, self.bias, self.mean,
+                                          self.var))
+        xf = x.float()
+        dims = (0, 2, 3)
+        n = x.numel() // x.shape[1]
+        # jnp.mean and jnp.var: sums divided by n, the variance two-pass
+        mean = xf.sum(dim=dims) / n
+        var = ((xf - mean[:, None, None]) ** 2).sum(dim=dims) / n
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * unbiased)
+        return batch_norm(x, *bn_fold(self.scale, self.bias, mean, var))
 
 
 class ConvBN(nn.Module):

@@ -5,8 +5,9 @@ families: `ModelConfig` keeps the JAX package's fields, `get_model`
 builds the `nn.Module` with the config on its `config` attribute, and
 `forward_dense` is the decode glue of `dense_from_raw` (raw heads →
 dense xyxy boxes with scores and classes, class logits for the
-multi-label postprocess, or rotated cxcywhθ boxes with scores). Further
-families register with their slices.
+multi-label postprocess, or rotated cxcywhθ boxes with scores); `loss`
+is the family's training loss (FCOS so far). Further families register
+with their slices.
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ class ModelConfig:
     # ignored, the port's top-k is exact everywhere
     approx_topk: bool = True
     # the JAX package's switch for its fused Pallas GN; accepted and
-    # ignored: the port's towers always call `kernels.gn.bias_gn_relu`
-    # (the CUDA kernel on the card, its plain version on the CPU)
+    # ignored: the port's towers always run the GN kernels
+    # (`kernels.gn.bias_gn_relu`, or `BiasGNReLU` under autograd; the
+    # CUDA kernels on the card, their plain versions on the CPU)
     fused_gn: bool | None = None
 
 
@@ -147,6 +149,27 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
     return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
             "scores": decoded["scores"],
             "classes": decoded["classes"]}
+
+
+def loss(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
+         gt_classes: torch.Tensor, gt_valid: torch.Tensor) -> dict:
+    """The training loss of a uint8 NHWC batch against padded GT (boxes
+    (B, M, 4) cxcywh in net pixels, classes (B, M) int, valid (B, M)
+    bool): {"cls", "box", "ctr", "total"} scalar tensors for fcos, the
+    JAX `_build_fcos.loss` terms. Run the model in train mode for
+    batch-statistics BatchNorm, as `forward_raw(train=True)` does."""
+    cfg = model.config
+    if cfg.family != "fcos":
+        raise NotImplementedError(
+            f"the {cfg.family} loss arrives with the port's next training "
+            f"slice (the YOLOv3 and RAPiD losses with the Darknet "
+            f"train-mode path); only fcos trains so far")
+    cls_logits, ltrb, ctr = model(images, with_gate=False)
+    locations, strides = fcos.generate_locations(int(images.shape[1]),
+                                                 images.device)
+    return fcos.loss(cls_logits.float(), ltrb, ctr, locations, strides,
+                     gt_boxes, gt_classes, gt_valid,
+                     num_classes=cfg.num_classes)
 
 
 def _build_yolov3(cfg: ModelConfig) -> nn.Module:

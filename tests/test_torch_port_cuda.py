@@ -1,7 +1,9 @@
-"""The port on the card: the CUDA NMS, bias+GroupNorm+ReLU and
-rotated-NMS suppress kernels against their plain versions, and the CUDA
-Detectors (yolov3, fcos, rapid) against the CPU ones. Every test skips on a host without a GPU. This
-file imports no JAX, so it runs where JAX is not installed:
+"""The port on the card: the CUDA NMS, bias+GroupNorm+ReLU (forward,
+forward with statistics, fused backward) and rotated-NMS suppress
+kernels against their plain versions, the CUDA Detectors (yolov3, fcos,
+rapid) against the CPU ones, and the CUDA fcos train step against the
+CPU one. Every test skips on a host without a GPU. This file imports no
+JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
@@ -15,17 +17,23 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     GN_GROUPS,
+    check_gn_train_case,
     compare_rotated,
+    compare_train_step,
     gn_case,
     gn_error,
+    gn_train_case,
     golden_image,
     nms_cases,
     padded_canvas,
+    parity_train_run,
     rotated_cases,
 )
-from mydetection_tpu_torch import Detector  # noqa: E402
+from mydetection_tpu_torch import Detector, kernels  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu,
+    bias_gn_relu_bwd,
+    bias_gn_relu_fwd_stats,
     bias_gn_relu_plain,
 )
 from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain  # noqa: E402
@@ -215,3 +223,99 @@ def test_cuda_rapid_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("rapid", 320, 0.3, canvas, info, {nms_from_iou_keep: 1,
                                                    nms_keep: 0})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_train_kernels_match_plain(cuda, shape, dtype):
+    """The forward-with-statistics kernel (y, mean, inv) and the fused
+    backward (dx, dbias, dscale, dshift) within chip_smoke's gates of
+    their plain versions, with a live ReLU mask; the backward twice, bit
+    for bit. One launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 7)
+    fwd_args, bwd_args = gn_train_case(gen, *shape, getattr(torch, dtype))
+    before = (bias_gn_relu_fwd_stats.launches, bias_gn_relu_bwd.launches)
+    check_gn_train_case(fwd_args, bwd_args)
+    assert (bias_gn_relu_fwd_stats.launches, bias_gn_relu_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_bwd_takes_a_nchw_dy(cuda, dtype):
+    """A contiguous NCHW dy (autograd may hand one over) gives the bits
+    of its channels_last copy."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    _, (x, y, dy, bias, scale, mean, inv) = gn_train_case(
+        gen, 3, 10, 10, getattr(torch, dtype), channels_last_dy=False)
+    assert not dy.is_contiguous(memory_format=torch.channels_last)
+    a = bias_gn_relu_bwd(x, y, dy, bias, scale, mean, inv, groups=GN_GROUPS)
+    b = bias_gn_relu_bwd(x, y, dy.contiguous(memory_format=torch.channels_last),
+                         bias, scale, mean, inv, groups=GN_GROUPS)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert a[0].is_contiguous(memory_format=torch.channels_last)
+
+
+def test_gn_bwd_is_bit_reproducible(cuda):
+    """No atomics: five runs at the P3 shape give one set of bits."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    _, args = gn_train_case(gen, 8, 76, 76, torch.bfloat16)
+    first = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
+    for _ in range(4):
+        again = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_gn_train_kernels_reject_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    (x, bias, scale, shift), (_, y, dy, _, _, mean, inv) = gn_train_case(
+        gen, 2, 4, 4, torch.float32)
+    before = (bias_gn_relu_fwd_stats.launches, bias_gn_relu_bwd.launches)
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_gn_relu_fwd_stats(x.contiguous(), bias, scale, shift)
+    with pytest.raises(ValueError, match="shift"):
+        bias_gn_relu_fwd_stats(x, bias, scale, shift.cpu())
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_gn_relu_bwd(x, y.contiguous(), dy, bias, scale, mean, inv)
+    with pytest.raises(ValueError, match="dy"):
+        bias_gn_relu_bwd(x, y, dy.bfloat16(), bias, scale, mean, inv)
+    with pytest.raises(ValueError, match="mean"):
+        bias_gn_relu_bwd(x, y, dy, bias, scale, mean.t(), inv)
+    with pytest.raises(ValueError, match="groups"):
+        bias_gn_relu_bwd(x, y, dy, bias, scale, mean, inv, groups=3)
+    assert (bias_gn_relu_fwd_stats.launches,
+            bias_gn_relu_bwd.launches) == before
+
+
+def test_cuda_train_step_matches_cpu(cuda):
+    """fcos at 64², batch 2, 4 classes, float32 with TF32 off: the first
+    step's loss terms, gradients, update and BN statistics within the
+    CPU tests' gates; 40 launches of each trainable GN kernel and none of
+    the inference one; the loss falls over four steps."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = parity_train_run("cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    cpu = parity_train_run("cpu")
+    compare_train_step(gpu, cpu)
+    assert gpu["launches"]["bias_gn_relu_fwd_stats"] == 40
+    assert gpu["launches"]["bias_gn_relu_bwd"] == 40
+    assert gpu["launches"]["bias_gn_relu"] == 0
+    assert gpu["totals"][-1] < gpu["totals"][0]
+
+
+def test_fcos_detect_launches_no_train_kernel(cuda):
+    """Detect runs under inference mode: the inference GN kernel 40
+    times, the NMS once, the trainable GN kernels never."""
+    canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
+    det = Detector("fcos", device="cuda", input_size=320, rng_seed=0)
+    kernels.reset_launches()
+    det.detect_prepared(canvas[None], [info], conf_thres=0.005)
+    got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    want.update(bias_gn_relu=40, nms_keep=1)
+    assert got == want

@@ -117,7 +117,7 @@ def test_batch_norm_fold_matches_jax():
     x = rng.randn(2, 8, 8, c).astype(np.float32)
     ref, _ = JL.batch_norm(jnp.asarray(x), {k: jnp.asarray(v)
                                             for k, v in bn.items()})
-    mod = TL.BatchNorm(c)
+    mod = TL.BatchNorm(c).eval()  # train mode takes the batch's statistics
     mod.load_state_dict({k: torch.from_numpy(v) for k, v in bn.items()})
     _rel_close(_nhwc(mod(_nchw(x))), np.asarray(ref), 1e-6)
 
