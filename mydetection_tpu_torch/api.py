@@ -1,19 +1,23 @@
 """User-facing Detector API: build-by-name → detect on images.
 
-A port of `mydetection_tpu/api.py` for the YOLOv3, FCOS and RAPiD
-families:
+A port of `mydetection_tpu/api.py` for the YOLOv3, RetinaNet, FCOS and
+RAPiD families:
 
   host:   image load + letterbox (PIL, bilinear)
   device: the model's dense forward (`registry.forward_dense`) — yolov3:
-          normalize → Darknet-53 → neck + heads → f32 single-label
-          decode; fcos: ImageNet standardize → ResNet-50 → FPN → GN
-          towers (40 launches of the CUDA bias+GN+ReLU kernel) → heads →
-          box decode, class logits kept for the postprocess; rapid:
-          normalize → Darknet-53 → neck + 6-channel heads → f32
-          angle-aware decode —
+          normalize → Darknet-53 → neck + heads → f32 decode;
+          retinanet: ImageNet standardize → ResNet-50/101 → FPN → the
+          class and box towers (10 launches of the CUDA conv-chain
+          kernel) → output convs → anchor decode, class logits kept for
+          the postprocess; fcos: the same backbone and FPN → GN towers
+          (40 launches of the CUDA bias+GN+ReLU kernel) → heads → box
+          decode; rapid: normalize → Darknet-53 → neck + 6-channel
+          heads → f32 angle-aware decode —
           then the postprocess: top-k (two stages on multi-label
-          configs) → class-offset greedy NMS (one CUDA kernel launch
-          for the whole batch) → max_dets rows + mask; rotated: top-k →
+          configs, the class rows of the stage-1 boxes gathered by one
+          CUDA kernel launch) → class-offset greedy NMS (one CUDA
+          kernel launch for the whole batch) → max_dets rows + mask;
+          rotated: top-k →
           the rotated-IoU matrix → the greedy suppress kernel (one
           launch for the batch) → max_dets rows + mask
   host:   strip invalid rows, inverse-letterbox to original pixels.

@@ -4,6 +4,7 @@ Every wrapper here counts its launches in a `launches` attribute;
 `KERNELS` lists them so a run can reset and read every count.
 """
 
+from mydetection_tpu_torch.kernels.gather import gather_rows
 from mydetection_tpu_torch.kernels.gn import (
     bias_gn_relu,
     bias_gn_relu_bwd,
@@ -11,9 +12,10 @@ from mydetection_tpu_torch.kernels.gn import (
 )
 from mydetection_tpu_torch.kernels.nms import nms_keep
 from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
+from mydetection_tpu_torch.kernels.tower import conv3x3_chain
 
 KERNELS = (nms_keep, bias_gn_relu, nms_from_iou_keep, bias_gn_relu_fwd_stats,
-           bias_gn_relu_bwd)
+           bias_gn_relu_bwd, conv3x3_chain, gather_rows)
 
 
 def reset_launches() -> None:

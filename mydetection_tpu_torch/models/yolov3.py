@@ -1,7 +1,8 @@
 """YOLOv3 neck, detection heads and the single-label decode.
 
 A port of `mydetection_tpu/models/yolov3.py` (`apply`, the anchor
-tables and `decode_single_label`). The neck runs NCHW; each raw head
+tables, the multi-label `decode_level` / `decode` / `scores_from` and
+`decode_single_label`). The neck runs NCHW; each raw head
 output is permuted to JAX's NHWC `(B, H, W, A*(5+C))` before it leaves
 the module, because the decode flattens it to `(B, H*W*A, 5+C)` with
 cells row-major and anchors minor — an NCHW map flattened directly would
@@ -142,6 +143,32 @@ def decode_boxes_level(r: torch.Tensor, grid: torch.Tensor,
     twh = torch.clamp(r[..., 2:4].float(), -TWH_CLAMP, TWH_CLAMP)
     wh = torch.exp(twh) * anc[None]
     return torch.cat([xy, wh], dim=-1)
+
+
+def decode_level(raw: torch.Tensor, anchors, stride: int,
+                 num_classes: int) -> dict[str, torch.Tensor]:
+    """One level's raw (B, H, W, A·(5+C)) → boxes (B, N, 4) cxcywh net
+    pixels, obj (B, N) and cls (B, N, C) sigmoids, float32."""
+    b, h, w, _ = raw.shape
+    r = raw.reshape(b, h * w * len(anchors), 5 + num_classes)
+    grid, anc = grid_anchor_tables(h, w, anchors, raw.device)
+    return {"boxes": decode_boxes_level(r, grid, anc, stride),
+            "obj": torch.sigmoid(r[..., 4].float()),
+            "cls": torch.sigmoid(r[..., 5:].float())}
+
+
+def decode(raw_outputs: Sequence[torch.Tensor], num_classes: int = 80, *,
+           anchors=ANCHORS) -> dict[str, torch.Tensor]:
+    """All levels → concatenated dense predictions (B, ΣN, ...)."""
+    parts = [decode_level(raw, anchors[i], STRIDES[i], num_classes)
+             for i, raw in enumerate(raw_outputs)]
+    return {k: torch.cat([p[k] for p in parts], dim=1)
+            for k in ("boxes", "obj", "cls")}
+
+
+def scores_from(decoded: dict) -> torch.Tensor:
+    """Per-class scores obj·cls (B, N, C), the YOLO convention."""
+    return decoded["obj"][..., None] * decoded["cls"]
 
 
 def decode_single_label(raw_outputs: Sequence[torch.Tensor],

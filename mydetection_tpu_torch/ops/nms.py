@@ -1,18 +1,18 @@
 """Static-shape postprocess and class-offset NMS, batched.
 
 A port of `mydetection_tpu/ops/nms.py` (`batched_class_nms_impl`,
-`postprocess_impl` on its pre-reduced single-label and its
-`score_logits` branches, `_multilabel_pairs`, `_nms_and_select`), with
-the image axis written out where the JAX package vmaps one image at a
-time:
+`postprocess_impl` on all its branches: pre-reduced single-label, dense
+(N, C) `scores` single- and multi-label, and `score_logits`;
+`_multilabel_pairs`, `_nms_and_select`), with the image axis written
+out where the JAX package vmaps one image at a time:
 
     single-label: conf gate → top-`pre_nms` boxes
     multi-label:  top-`pre_nms` boxes by their best class score →
-                  their (box, class) pairs, conf gate → top-`pre_nms`
+                  their class rows (one `kernels.gather.gather_rows`
+                  launch for the batch) → their (box, class) pairs,
+                  conf gate → top-`pre_nms`
     then: CLASS_OFFSET shift → greedy NMS (one kernel launch for the
     batch) → top-`max_dets` rows + mask.
-
-The dense (N, C) float `scores` input waits for the RetinaNet slice.
 
 Exactness rules kept from the JAX package: top-k is a stable descending
 sort (ties go to the lower index, as `jax.lax.top_k`), the class offset
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from mydetection_tpu_torch.kernels.gather import gather_rows
 from mydetection_tpu_torch.kernels.nms import nms_keep
 
 CLASS_OFFSET = 8192.0  # > any input_size; guarantees class separation
@@ -77,7 +78,9 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
     """Dense predictions → padded detections per image.
 
     boxes (B, N, 4) xyxy and either
-      * scores (B, N) per-box best-class scores with classes (B, N), or
+      * scores (B, N) per-box best-class scores with classes (B, N),
+      * scores (B, N, C) per-class scores (multi-label: every (box,
+        class) pair; single-label: each box's best class), or
       * score_logits (B, N, C) class logits in their own dtype, with
         optional score_mul (B, N), a per-box factor applied outside the
         sigmoid (FCOS centerness), and gate_logits (B, N), each box's
@@ -98,17 +101,27 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
         if score_mul is not None:
             box_max = box_max * score_mul
         if multi_label:
-            return _multilabel_pairs(boxes, score_logits, score_mul, box_max,
-                                     conf, iou_thres=iou_thres,
-                                     pre_nms=pre_nms, max_dets=max_dets)
+            _, box_sel = top_k(box_max, pre_nms)               # (B, kb)
+            sel = torch.sigmoid(gather_rows(score_logits, box_sel).float())
+            if score_mul is not None:
+                sel = sel * torch.gather(score_mul, 1, box_sel)[..., None]
+            return _multilabel_pairs(boxes, sel, box_sel, conf,
+                                     iou_thres=iou_thres, pre_nms=pre_nms,
+                                     max_dets=max_dets)
         # best class per box: argmax is sigmoid-invariant
         scores = box_max
         classes = torch.argmax(score_logits, dim=-1)
-    elif multi_label or scores.dim() != 2:
-        raise NotImplementedError(
-            "the dense (N, C) scores postprocess arrives with the RetinaNet "
-            "slice of the port; pass per-box scores and classes, or "
-            "score_logits")
+    elif scores.dim() == 2:
+        if classes is None:
+            raise ValueError("per-box (B, N) scores require classes")
+    elif multi_label:
+        _, box_sel = top_k(torch.amax(scores, dim=-1), pre_nms)
+        return _multilabel_pairs(boxes, gather_rows(scores, box_sel),
+                                 box_sel, conf, iou_thres=iou_thres,
+                                 pre_nms=pre_nms, max_dets=max_dets)
+    else:
+        classes = torch.argmax(scores, dim=-1)
+        scores = torch.amax(scores, dim=-1)
     gated = torch.where(scores >= conf, scores, NEG_INF)
     top_scores, box_idx = _top_k_padded(gated, pre_nms)
     cls_idx = torch.gather(classes.to(torch.int32), 1, box_idx)
@@ -116,15 +129,12 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
                           iou_thres=iou_thres, max_dets=max_dets)
 
 
-def _multilabel_pairs(boxes, score_logits, score_mul, box_max, conf, *,
-                      iou_thres: float, pre_nms: int, max_dets: int) -> dict:
-    """Stage 1: the top-pre_nms boxes by their best score. Stage 2: the
-    top-pre_nms (box, class) pairs above conf among them, then NMS."""
-    c = score_logits.shape[-1]
-    _, box_sel = top_k(box_max, pre_nms)                      # (B, kb)
-    sel = torch.sigmoid(_rows(score_logits, box_sel).float())  # (B, kb, C)
-    if score_mul is not None:
-        sel = sel * torch.gather(score_mul, 1, box_sel)[..., None]
+def _multilabel_pairs(boxes, sel, box_sel, conf, *, iou_thres: float,
+                      pre_nms: int, max_dets: int) -> dict:
+    """Stage 2 over the stage-1 boxes `box_sel` (B, kb) and their class
+    scores `sel` (B, kb, C): the top-pre_nms (box, class) pairs above
+    conf, then NMS."""
+    c = sel.shape[-1]
     flat = sel.reshape(sel.shape[0], -1)
     flat = torch.where(flat >= conf, flat, NEG_INF)
     top_scores, top_idx = _top_k_padded(flat, pre_nms)

@@ -1,13 +1,12 @@
 """Model factory: string name → model module (the build-by-name surface).
 
-A port of `mydetection_tpu/registry.py` for the YOLOv3, FCOS and RAPiD
-families: `ModelConfig` keeps the JAX package's fields, `get_model`
-builds the `nn.Module` with the config on its `config` attribute, and
-`forward_dense` is the decode glue of `dense_from_raw` (raw heads →
-dense xyxy boxes with scores and classes, class logits for the
-multi-label postprocess, or rotated cxcywhθ boxes with scores); `loss`
-is the family's training loss (FCOS so far). Further families register
-with their slices.
+A port of `mydetection_tpu/registry.py` for the YOLOv3, RetinaNet,
+FCOS and RAPiD families: `ModelConfig` keeps the JAX package's fields,
+`get_model` builds the `nn.Module` with the config on its `config`
+attribute, and `forward_dense` is the decode glue of `dense_from_raw`
+(raw heads → dense xyxy boxes with per-box or per-class scores, class
+logits for the multi-label postprocess, or rotated cxcywhθ boxes with
+scores); `loss` is the family's training loss (FCOS so far).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.models import fcos, rapid, yolov3
+from mydetection_tpu_torch.models import fcos, rapid, retinanet, yolov3
 from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
 
 
@@ -121,14 +120,24 @@ def check_input_size(size: int) -> None:
 
 def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
     """uint8 NHWC batch → the dense dict the postprocess takes, by
-    family. yolov3: boxes (B, N, 4) xyxy, scores (B, N), classes
-    (B, N), all from the f32 decode. fcos: boxes (B, N, 4) xyxy f32,
-    score_logits (B, N, C) in the compute dtype, score_mul (B, N) =
-    sigmoid(ctr) and, on multi-label configs, score_gate (B, N), the
-    max-over-classes logit; the sigmoid of the class logits waits until
-    after the postprocess's top-k. rapid: boxes (B, N, 5) cxcywhθ
-    (radians) and scores (B, N), float32."""
+    family. yolov3: boxes (B, N, 4) xyxy and, single-label, scores
+    (B, N) with classes (B, N), multi-label scores (B, N, C) = obj·cls,
+    all from the f32 decode. retinanet: boxes (B, N, 4) xyxy f32 from
+    the anchors, score_logits (B, N, C) in the compute dtype and, on
+    multi-label configs, score_gate (B, N), the max-over-classes logit.
+    fcos: the same with score_mul (B, N) = sigmoid(ctr); the sigmoid of
+    the class logits waits until after the postprocess's top-k. rapid:
+    boxes (B, N, 5) cxcywhθ (radians) and scores (B, N), float32."""
     cfg = model.config
+    if cfg.family == "retinanet":
+        cls_logits, deltas, *gate = model(images)
+        anchors = retinanet.generate_anchors(int(images.shape[1]),
+                                             images.device)
+        out = {"boxes": retinanet.decode_boxes(deltas, anchors),
+               "score_logits": cls_logits}
+        if gate:
+            out["score_gate"] = gate[0]
+        return out
     if cfg.family == "fcos":
         cls_logits, ltrb, ctr, *gate = model(images)
         locations, _ = fcos.generate_locations(int(images.shape[1]),
@@ -144,6 +153,11 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
         decoded = rapid.decode(model(images), anchors=anchors)
         return {"boxes": decoded["boxes5"], "scores": decoded["conf"]}
     anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
+    if cfg.multi_label:
+        decoded = yolov3.decode(model(images), cfg.num_classes,
+                                anchors=anchors)
+        return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
+                "scores": yolov3.scores_from(decoded)}
     decoded = yolov3.decode_single_label(model(images), cfg.num_classes,
                                          anchors=anchors)
     return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
@@ -173,16 +187,19 @@ def loss(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
 
 
 def _build_yolov3(cfg: ModelConfig) -> nn.Module:
-    if cfg.multi_label:
-        raise NotImplementedError(
-            "multi-label YOLOv3 decode arrives with the RetinaNet slice of "
-            "the port; yolov3 is registered single-label")
     return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype)
 
 
 def _build_rapid(cfg: ModelConfig) -> nn.Module:
     return yolov3.YOLOv3(cfg.num_classes, cfg.compute_dtype,
                          channels_per_anchor=rapid.CHANNELS_PER_ANCHOR)
+
+
+def _build_retinanet(depth: int) -> Callable[[ModelConfig], nn.Module]:
+    def build(cfg: ModelConfig) -> nn.Module:
+        return retinanet.RetinaNet(depth, cfg.num_classes, cfg.compute_dtype,
+                                   with_gate=cfg.multi_label)
+    return build
 
 
 def _build_fcos(cfg: ModelConfig) -> nn.Module:
@@ -202,3 +219,10 @@ register("rapid", ModelConfig(name="rapid", family="rapid", num_classes=1,
                               class_names=("person",)))(_build_rapid)
 register("fcos", ModelConfig(name="fcos", family="fcos", num_classes=80,
                              input_size=608, conf_thres=0.05))(_build_fcos)
+register("retinanet", ModelConfig(name="retinanet", family="retinanet",
+                                  num_classes=80, input_size=608,
+                                  conf_thres=0.05))(_build_retinanet(50))
+register("retinanet_r101", ModelConfig(name="retinanet_r101",
+                                       family="retinanet", num_classes=80,
+                                       input_size=608,
+                                       conf_thres=0.05))(_build_retinanet(101))

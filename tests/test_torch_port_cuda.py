@@ -1,8 +1,8 @@
 """The port on the card: the CUDA NMS, bias+GroupNorm+ReLU (forward,
-forward with statistics, fused backward) and rotated-NMS suppress
-kernels against their plain versions, the CUDA Detectors (yolov3, fcos,
-rapid) against the CPU ones, and the CUDA fcos train step against the
-CPU one. Every test skips on a host without a GPU. This file imports no
+forward with statistics, fused backward), rotated-NMS suppress, conv
+chain and row gather kernels against their plain versions, the CUDA
+Detectors (yolov3, fcos, rapid, retinanet) against the CPU ones, and
+the CUDA fcos train step against the CPU one. Every test skips on a host without a GPU. This file imports no
 JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     GN_GROUPS,
+    check_parity,
     check_gn_train_case,
     compare_rotated,
     compare_train_step,
@@ -24,10 +25,14 @@ from chip_smoke import (  # noqa: E402
     gn_error,
     gn_train_case,
     golden_image,
+    gather_cases,
     nms_cases,
+    noise_canvas,
     padded_canvas,
     parity_train_run,
     rotated_cases,
+    tower_case,
+    tower_error,
 )
 from mydetection_tpu_torch import Detector, kernels  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
@@ -37,9 +42,17 @@ from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu_plain,
 )
 from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain  # noqa: E402
+from mydetection_tpu_torch.kernels.gather import (  # noqa: E402
+    gather_rows,
+    gather_rows_plain,
+)
 from mydetection_tpu_torch.kernels.rotated_nms import (  # noqa: E402
     nms_from_iou_keep,
     nms_from_iou_keep_plain,
+)
+from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
+    conv3x3_chain,
+    conv3x3_chain_plain,
 )
 
 THR = 0.45
@@ -310,12 +323,145 @@ def test_cuda_train_step_matches_cpu(cuda):
 
 def test_fcos_detect_launches_no_train_kernel(cuda):
     """Detect runs under inference mode: the inference GN kernel 40
-    times, the NMS once, the trainable GN kernels never."""
+    times, the NMS and the class-row gather once, the trainable GN
+    kernels never."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     det = Detector("fcos", device="cuda", input_size=320, rng_seed=0)
     kernels.reset_launches()
     det.detect_prepared(canvas[None], [info], conf_thres=0.005)
     got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
-    want.update(bias_gn_relu=40, nms_keep=1)
+    want.update(bias_gn_relu=40, nms_keep=1, gather_rows=1)
     assert got == want
+
+
+# (B, H, W, C): the five RetinaNet@608 levels at batch 32, and a ragged one
+TOWER_SHAPES = [(32, 76, 76, 256), (32, 38, 38, 256), (32, 19, 19, 256),
+                (32, 10, 10, 256), (32, 5, 5, 256), (2, 9, 13, 64)]
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain chain's float32 conv on cuDNN in full float32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TOWER_SHAPES)
+def test_tower_kernel_matches_plain(cuda, no_tf32, shape, dtype):
+    """chip_smoke's gates, max-scaled: float32 2e-5, bf16 0.05; two runs
+    bit for bit; one launch a call."""
+    b, h, w, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    args = tower_case(gen, b, h, w, getattr(torch, dtype), c)
+    before = conv3x3_chain.launches
+    got = conv3x3_chain(*args)
+    again = conv3x3_chain(*args)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches == before + 2
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    err, ok = tower_error(got, conv3x3_chain_plain(*args))
+    assert ok, err
+
+
+def test_tower_kernel_takes_one_and_three_layers(cuda, no_tf32):
+    """An odd layer count ends in the output slab, not the scratch."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for layers in (1, 3):
+        args = tower_case(gen, 2, 7, 5, torch.float32, 32, layers=layers)
+        err, ok = tower_error(conv3x3_chain(*args), conv3x3_chain_plain(*args))
+        assert ok, (layers, err)
+
+
+def test_tower_kernel_raises_under_autograd(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, packed, biases = tower_case(gen, 1, 5, 5, torch.float32, 16)
+    before = conv3x3_chain.launches
+    with pytest.raises(NotImplementedError, match="training slice"):
+        conv3x3_chain(x.requires_grad_(), packed, biases)
+    with torch.no_grad():
+        conv3x3_chain(x, packed, biases)
+    assert conv3x3_chain.launches == before + 1
+
+
+def test_tower_kernel_rejects_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, packed, biases = tower_case(gen, 1, 5, 5, torch.float32, 32)
+    before = conv3x3_chain.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        conv3x3_chain(x.contiguous(), packed, biases)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv3x3_chain(x.half(), packed.half(), biases)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        conv3x3_chain(x[:, :24], packed[:, :216, :24], biases[:, :24])
+    with pytest.raises(ValueError, match="packed"):
+        conv3x3_chain(x, packed.bfloat16(), biases)
+    with pytest.raises(ValueError, match="biases"):
+        conv3x3_chain(x, packed, biases.cpu())
+    assert conv3x3_chain.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+@pytest.mark.parametrize("c", [80, 7])
+def test_gather_kernel_matches_plain(cuda, dtype, c):
+    """Bit-equal on chip_smoke's index sets (sorted with duplicates,
+    top-k order, all equal), int64 and int32; C = 7 rows break 16-byte
+    alignment; a strided index view (a top-k's prefix) too."""
+    src = torch.randn(4, 5000, c, device=cuda).to(getattr(torch, dtype))
+    for sel in gather_cases(np.random.RandomState(c), 4, 5000, 700).values():
+        for idx in (torch.from_numpy(sel).to(cuda),
+                    torch.from_numpy(sel).to(cuda).int()):
+            before = gather_rows.launches
+            got = gather_rows(src, idx)
+            assert gather_rows.launches == before + 1
+            assert torch.equal(got, gather_rows_plain(src, idx))
+    _, order = torch.sort(src.float().amax(-1), dim=1, descending=True)
+    assert torch.equal(gather_rows(src, order[:, :300]),
+                       gather_rows_plain(src, order[:, :300]))
+
+
+def test_gather_kernel_rejects_bad_inputs(cuda):
+    src = torch.zeros(2, 10, 8, device=cuda)
+    sel = torch.zeros(2, 4, dtype=torch.long, device=cuda)
+    before = gather_rows.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(src.transpose(1, 2), sel)
+    with pytest.raises(ValueError, match="int64 or int32"):
+        gather_rows(src, sel.float())
+    with pytest.raises(ValueError, match="sel"):
+        gather_rows(src, sel.cpu())
+    with pytest.raises(ValueError, match="unit stride"):
+        gather_rows(src, sel.t().contiguous().t())
+    assert gather_rows.launches == before
+
+
+def test_cuda_retinanet_detector_matches_cpu(cuda, no_tf32):
+    """chip_smoke's retinanet parity: a 320² noise canvas, float32,
+    counts and classes equal, scores within 1e-4, boxes within 1e-2 px
+    plus twice the CPU's own float32 error (the largest distance of its
+    boxes from a float64 run's), row by row or by a one-to-one match;
+    the CUDA run launches the NMS once, the chain 10 times and the
+    gather once."""
+    check_parity("retinanet", *noise_canvas(320), 0.005,
+                 {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1},
+                 box_floor=True)
+
+
+def test_retinanet_detect_launches(cuda):
+    canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
+    det = Detector("retinanet", device="cuda", input_size=320, rng_seed=0)
+    kernels.reset_launches()
+    dets = det.detect_prepared(canvas[None], [info], conf_thres=0.005)
+    got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    want.update(nms_keep=1, conv3x3_chain=10, gather_rows=1)
+    assert got == want
+    assert len(dets[0]) > 0 and np.isfinite(dets[0].boxes_xyxy).all()

@@ -123,7 +123,7 @@ def test_detector_rejects_bad_inputs(det64):
         det64.detect_prepared(np.zeros((1, 64, 64, 3), np.float32),
                               [timg.letterbox_np(_images()[0], 64)[1]])
     with pytest.raises(KeyError, match="available"):
-        Detector("retinanet", device="cpu")
+        Detector("ssd300", device="cpu")
     assert det64.detect_batch([]) == []
 
 
@@ -158,7 +158,8 @@ def test_seeded_init_is_deterministic():
     assert abs(float(w.std()) - (2.0 / (32 * 9)) ** 0.5) < 0.01
     assert not a["1.out.bias"].any()
     assert (a["0.bn.scale"] == 1).all() and (a["0.bn.var"] == 1).all()
-    assert list_models() == ["fcos", "rapid", "yolov3", "yolov3_608"]
+    assert list_models() == ["fcos", "rapid", "retinanet", "retinanet_r101",
+                             "yolov3", "yolov3_608"]
 
 
 def test_detector_defaults_to_cuda():

@@ -283,11 +283,23 @@ def test_score_logits_postprocess_matches_jax(kind, multi_label, gate):
 
 
 def test_postprocess_rejects_dense_scores_and_both_inputs():
-    boxes, logits, _ = _post_case("random", b=1)
-    with pytest.raises(NotImplementedError, match="RetinaNet"):
-        tnms.postprocess(torch.from_numpy(boxes),
-                         torch.from_numpy(logits), conf_thres=0.1,
-                         iou_thres=0.45, multi_label=True)
+    """Dense (B, N, C) scores, which the RetinaNet slice brought, are
+    taken: the sigmoid of fcos logits times the centerness, single-label,
+    bit-equal to `postprocess_impl(multi_label=False)` image by image.
+    Passing both scores and score_logits still raises."""
+    boxes, logits, mul = _post_case("random", b=2)
+    scores = (1 / (1 + np.exp(-logits)) * mul[..., None]).astype(np.float32)
+    got = tnms.postprocess(torch.from_numpy(boxes), torch.from_numpy(scores),
+                           conf_thres=0.1, iou_thres=0.45, pre_nms=64,
+                           max_dets=20, multi_label=False)
+    for i in range(len(boxes)):
+        ref = jnms.postprocess_impl(
+            jnp.asarray(boxes[i]), jnp.asarray(scores[i]), conf_thres=0.1,
+            iou_thres=0.45, pre_nms=64, max_dets=20, multi_label=False)
+        assert int(np.asarray(ref["valid"]).sum()) > 0
+        for key in ("boxes", "scores", "classes", "valid"):
+            np.testing.assert_array_equal(got[key][i].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
     with pytest.raises(ValueError, match="not both"):
         tnms.postprocess(torch.from_numpy(boxes),
                          torch.from_numpy(logits[..., 0]),

@@ -1,5 +1,5 @@
 """Port parity of the NMS slice: the plain keep-mask and the single-label
-postprocess against the JAX package (the CUDA kernel's legs are in
+and dense multi-label postprocess against the JAX package (the CUDA kernel's legs are in
 test_torch_port_cuda.py).
 
 The hard keep-mask cases come from `chip_smoke.nms_cases`, the same
@@ -136,9 +136,29 @@ def test_postprocess_matches_jax(n, tied):
 
 
 def test_postprocess_multi_label_names_later_slice():
-    with pytest.raises(NotImplementedError, match="RetinaNet slice"):
-        tnms.postprocess(torch.zeros(1, 8, 4), torch.zeros(1, 8, 3),
-                         torch.zeros(1, 8), conf_thres=0.1, iou_thres=THR)
+    """The dense (B, N, C) scores branch, which the RetinaNet slice
+    brought, on _dense's boxes with 4 classes of scores: multi-label
+    bit-equal to `postprocess_impl` (multi_label=True). The same case
+    passed as (B, N) scores without classes raises."""
+    boxes, scores, _, conf = _dense(7, 2, 600, False)
+    rng = np.random.RandomState(7)
+    dense = (scores[..., None] * rng.uniform(0, 1, (2, 600, 4))).astype(
+        np.float32)
+    got = tnms.postprocess(torch.from_numpy(boxes), torch.from_numpy(dense),
+                           conf_thres=torch.from_numpy(conf), iou_thres=THR,
+                           pre_nms=512, max_dets=100, multi_label=True)
+    for i in range(len(boxes)):
+        ref = jnms.postprocess(jnp.asarray(boxes[i]), jnp.asarray(dense[i]),
+                               conf_thres=conf[i], iou_thres=THR,
+                               pre_nms=512, max_dets=100, multi_label=True,
+                               approx_topk=False)
+        assert int(np.asarray(ref["valid"]).sum()) > 0
+        for key in ("boxes", "scores", "classes", "valid"):
+            np.testing.assert_array_equal(got[key][i].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
+    with pytest.raises(ValueError, match="require classes"):
+        tnms.postprocess(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         conf_thres=0.1, iou_thres=THR)
 
 
 def test_top_k_breaks_ties_toward_lower_index():
