@@ -30,27 +30,38 @@ Phases, one line each; any failure exits non-zero and prints no result:
               shapes at B=32, C=256, and a ragged 9x13 at B=2, C=64,
               float32 (TF32 off) and bf16, inputs with a non-zero mean
               and 0.1 N(0, 1) weights; two runs bit for bit;
-  8. gather   the CUDA row gather bit-equal to its plain version on
+  8. bottleneck the CUDA fused stride-1 bottleneck against its plain
+              version at the six routed ResNet@608 block shapes at B=32
+              (stage 0: 64->256 with the projection, 256->256; stage 1:
+              512->512) and ragged 9x13 maps at B=2 with and without a
+              projection, float32 (TF32 off) and bf16, inputs with a
+              non-zero mean and BN statistics drawn as the TPU script
+              draws them; two runs bit for bit;
+  9. gather   the CUDA row gather bit-equal to its plain version on
               (32, 69354, 80) bf16 and f32 sources with K=1024 indices
               sorted with duplicates, in top-k order and all equal, and
               on C=7 rows that break 16-byte alignment;
-  9. parity   Detector("yolov3", 416), Detector("fcos", 320),
-              Detector("rapid", 320) and Detector("retinanet", 320),
-              float32 with TF32 off, on the card against the same
-              seeded weights on the CPU, on procedural canvases (for
-              retinanet a canvas of noise);
- 10. train parity  fcos at 64², batch 2, 4 classes, float32 with TF32
+ 10. parity   Detector("yolov3", 416), Detector("fcos", 320),
+              Detector("rapid", 320), Detector("retinanet", 320) and
+              Detector("retinanet_r101", 320), float32 with TF32 off, on
+              the card against the same seeded weights on the CPU, on
+              procedural canvases (for the RetinaNets a canvas of
+              noise);
+ 11. parity bf16  fcos, retinanet and retinanet_r101 at 320 in bf16 on
+              the card against bf16 on the CPU, on the same canvases,
+              matched one to one and tie-aware (`match_bf16`);
+ 12. train parity  fcos at 64², batch 2, 4 classes, float32 with TF32
               off: `make_train_step` on the card against the CPU from
               the same seeded weights and batch (the first step's loss
               terms, gradients, update and BN statistics within the CPU
               tests' gates), and the loss falling over four steps;
- 11. main     each detect main path once — yolov3-416, fcos-608,
-              rapid-1024, retinanet-608 — bf16 `detect_prepared` on 32
-              canvases, with every kernel launch count reset just before
-              and read just after; then the batch's latency, img/s and
-              device time; each kernel replayed on the path's own
-              inputs for its row;
- 12. train main  fcos-608 at full width and depth, bf16, batch 16,
+ 13. main     each detect main path once — yolov3-416, fcos-608,
+              rapid-1024, retinanet-608, retinanet_r101-608 — bf16
+              `detect_prepared` on 32 canvases, with every kernel launch
+              count reset just before and read just after; then the
+              batch's latency, img/s and device time; each kernel
+              replayed on the path's own inputs for its row;
+ 14. train main  fcos-608 at full width and depth, bf16, batch 16,
               `make_train_step` with `burn_in_lr` on a synthetic batch:
               2 warm-up and 5 timed steps, each with its launch counts
               reset before and read after; the step's latency, img/s,
@@ -116,8 +127,27 @@ TOWER_LAYERS = 4
 TOWER_F32_GATE = 2e-5
 TOWER_BF16_GATE = 0.05
 GATHER_N, GATHER_C = 69354, 80  # RetinaNet-608's anchors and classes
+# the fused bottleneck against its plain version, max-scaled: float32
+# the tower's 2e-5 (the sums reassociate); bf16 the TPU script's own
+# gate for its kernel against the XLA chain (resnet_stage_experiments.py)
+BOTTLENECK_F32_GATE = 2e-5
+BOTTLENECK_BF16_GATE = 0.05
+# (B, H, W, c_in, c_out): the routed blocks at 608, batch 32 — stage 0's
+# block 0 (projection) and blocks 1-2, stage 1's blocks 1-3 — and ragged
+# maps with and without a projection
+BOTTLENECK_SHAPES = [(BATCH, 152, 152, 64, 256), (BATCH, 152, 152, 256, 256),
+                     (BATCH, 76, 76, 512, 512), (2, 9, 13, 64, 256),
+                     (2, 9, 13, 256, 256), (2, 9, 13, 512, 512)]
 # the CUDA-vs-CPU detect parity gates (the goldens')
 PARITY_SCORE_GATE, PARITY_BOX_GATE = 1e-4, 1e-2
+# the bf16 card-vs-CPU detect check: a card detection matches a CPU one
+# of its class within BF16_SCORE_TOL and BF16_BOX_TOL px (one to one,
+# tie-aware); at least BF16_MIN_MATCHED of the larger count must match.
+# Measured on an H100 (PERF.md §2): fcos 0.93, retinanet 0.81,
+# retinanet_r101 0.99 matched, matched pairs' score deltas at most
+# 4.77e-4; each gate is its measurement less a margin of 0.10
+BF16_SCORE_TOL, BF16_BOX_TOL = 5e-3, 2.0
+BF16_MIN_MATCHED = {"fcos": 0.83, "retinanet": 0.71, "retinanet_r101": 0.89}
 
 
 # ---------------------------------------------------------------------------
@@ -795,6 +825,78 @@ def phase_tower() -> None:
           f"{', '.join(report)}", flush=True)
 
 
+def bottleneck_case(gen, b: int, h: int, w: int, c_in: int, c_out: int,
+                    dtype, device: str = "cuda", bn_bias: float = 0.0):
+    """A fused_bottleneck call's inputs: x (b, c_in, h, w) in
+    channels_last with mean 0.5 and unit spread, and a port `Bottleneck`
+    (a projection when c_in != c_out) with He-normal conv weights, BN
+    statistics drawn as the TPU script draws them (mean 0.1 N(0, 1), var
+    U(0.5, 2)) and BN biases `bn_bias`, folded in `dtype`. Returns
+    (x, Folded)."""
+    from mydetection_tpu_torch.kernels.bottleneck import fold_bottleneck
+    from mydetection_tpu_torch.models.layers import BatchNorm
+    from mydetection_tpu_torch.models.resnet import Bottleneck
+
+    kw = dict(device=device, generator=gen)
+    block = Bottleneck(c_in, c_out, 1, downsample=c_in != c_out).to(device)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                std = (2.0 / m.weight[0].numel()) ** 0.5
+                m.weight.copy_(std * torch.randn(m.weight.shape, **kw))
+            elif isinstance(m, BatchNorm):
+                m.mean.copy_(0.1 * torch.randn(m.mean.shape, **kw))
+                m.var.copy_(0.5 + 1.5 * torch.rand(m.var.shape, **kw))
+                m.bias.fill_(bn_bias)
+    x = (torch.randn(b, c_in, h, w, **kw) + 0.5).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    return x, fold_bottleneck(block.eval(), dtype)
+
+
+def bottleneck_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
+    """(max-scaled |got - ref|, within BOTTLENECK_F32_GATE or
+    BOTTLENECK_BF16_GATE by got's dtype)."""
+    err = max_scaled(got, ref)
+    gate = (BOTTLENECK_F32_GATE if got.dtype == torch.float32
+            else BOTTLENECK_BF16_GATE)
+    return err, err <= gate
+
+
+def phase_bottleneck() -> None:
+    from mydetection_tpu_torch.kernels import bottleneck as bk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    report = []
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for b, h, w, c_in, c_out in BOTTLENECK_SHAPES:
+            x, f = bottleneck_case(gen, b, h, w, c_in, c_out, dtype)
+            got = bk.fused_bottleneck(x, *f)
+            again = bk.fused_bottleneck(x, *f)
+            ref = bk.fused_bottleneck_plain(x, *f)
+            torch.cuda.synchronize()
+            err, ok = bottleneck_error(got, ref)
+            if not ok or not torch.equal(got, again) or got.shape != ref.shape \
+                    or not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"fused_bottleneck {dtype} at {(b, h, w, c_in, c_out)}: "
+                                     f"max-scaled |d| {err:.3g} outside its "
+                                     f"gate, two runs differ, or the output "
+                                     f"has the wrong shape or layout")
+            worst = max(worst, err)
+            del x, f, got, again, ref
+        report.append(f"{str(dtype)[6:]} max-scaled |d| {worst:.3g}")
+    smem = {f"{str(dt)[6:]} c_mid {cm}": bk.smem_bytes(cm, dt)
+            for dt in (torch.float32, torch.bfloat16) for cm in bk.C_MIDS}
+    print(f"bottleneck: fused_bottleneck within its gates of plain at (B, H, "
+          f"W, c_in, c_out) {BOTTLENECK_SHAPES} (f32 gate "
+          f"{BOTTLENECK_F32_GATE}, TF32 off; bf16 gate "
+          f"{BOTTLENECK_BF16_GATE}), bit-equal over two runs: "
+          f"{', '.join(report)}; dynamic shared memory a block {smem} bytes",
+          flush=True)
+
+
 def gather_cases(rng, b: int, n: int, k: int) -> dict:
     """(b, k) int64 index sets over n rows: sorted with duplicates (the
     TPU kernel's contract, first and last rows included), a random
@@ -970,7 +1072,21 @@ def noise_canvas(size: int, seed: int = 5):
         input_size=size)
 
 
+def parity_cases() -> dict:
+    """name → (canvas, info, conf) of the detect parity runs: yolov3 on
+    the letterboxed golden image at 416, fcos and rapid on its middle at
+    320, the RetinaNets on a 320² noise canvas (a uniform letterbox
+    border would give exactly tied candidates). At init FCOS scores sit
+    near 0.01 x 0.5: conf 0.005 keeps fcos from being vacuous."""
+    middle = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
+    return {"yolov3": (*padded_canvas(golden_image(), 416, 8, 58), 0.25),
+            "fcos": (*middle, 0.005), "rapid": (*middle, 0.3),
+            "retinanet": (*noise_canvas(320), 0.005),
+            "retinanet_r101": (*noise_canvas(320), 0.005)}
+
+
 def phase_parity() -> None:
+    from mydetection_tpu_torch.kernels.bottleneck import fused_bottleneck
     from mydetection_tpu_torch.kernels.gather import gather_rows
     from mydetection_tpu_torch.kernels.gn import bias_gn_relu
     from mydetection_tpu_torch.kernels.nms import nms_keep
@@ -979,21 +1095,79 @@ def phase_parity() -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    check_parity("yolov3", *padded_canvas(golden_image(), 416, 8, 58), 0.25,
-                 {nms_keep: 1})
-    # at init FCOS scores sit near 0.01 x 0.5: conf 0.005 keeps the
-    # phase from being vacuous
-    check_parity("fcos", *padded_canvas(golden_image()[:, 50:350], 320, 10, 10),
-                 0.005, {nms_keep: 1, bias_gn_relu: 40, gather_rows: 1})
-    check_parity("rapid", *padded_canvas(golden_image()[:, 50:350], 320, 10, 10),
-                 0.3, {nms_from_iou_keep: 1})
-    # a uniform letterbox border would give exactly tied candidates; the
-    # seeded deltas reach |d| ~ 50, so a corner is the difference of two
-    # coordinates near 1e4 px and float32 alone moves it by ~1e-2 px
+    cases = parity_cases()
+    check_parity("yolov3", *cases["yolov3"], {nms_keep: 1, fused_bottleneck: 0})
+    check_parity("fcos", *cases["fcos"], {nms_keep: 1, bias_gn_relu: 40,
+                                          gather_rows: 1, fused_bottleneck: 6})
+    check_parity("rapid", *cases["rapid"], {nms_from_iou_keep: 1,
+                                            fused_bottleneck: 0})
+    # the seeded deltas reach |d| ~ 50, so a corner is the difference of
+    # two coordinates near 1e4 px and float32 alone moves it by ~1e-2 px
     # (the CPU's float32 boxes are 0.0139 px from its float64 ones here)
-    check_parity("retinanet", *noise_canvas(320), 0.005,
-                 {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1},
-                 box_floor=True)
+    for name in ("retinanet", "retinanet_r101"):
+        check_parity(name, *cases[name],
+                     {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1,
+                      fused_bottleneck: 6}, box_floor=True)
+
+
+def match_bf16(gpu, cpu) -> dict:
+    """Tie-aware one-to-one matching of bf16 card detections to bf16 CPU
+    ones: each card detection, in score order, takes the unused CPU
+    detection of its class within BF16_SCORE_TOL and BF16_BOX_TOL px
+    (largest coordinate difference) that lies nearest, so neighbours
+    tied in score may pair in any order. Returns the matched count, the
+    unmatched counts of both sides and the largest score and box deltas
+    of the matched pairs."""
+    used = np.zeros(len(cpu), bool)
+    ds = db = 0.0
+    for box, score, cls in zip(gpu.boxes_xyxy, gpu.scores, gpu.classes):
+        dist = np.abs(cpu.boxes_xyxy - box[None]).max(axis=1) \
+            if len(cpu) else np.zeros(0)
+        dscore = np.abs(cpu.scores - score)
+        cand = (~used & (cpu.classes == cls) & (dist <= BF16_BOX_TOL)
+                & (dscore <= BF16_SCORE_TOL))
+        if cand.any():
+            j = int(np.argmin(np.where(cand, dist, np.inf)))
+            used[j] = True
+            ds, db = max(ds, float(dscore[j])), max(db, float(dist[j]))
+    matched = int(used.sum())
+    return {"matched": matched, "unmatched_card": len(gpu) - matched,
+            "unmatched_cpu": len(cpu) - matched, "max_d_score": ds,
+            "max_d_box_px": db}
+
+
+def phase_parity_bf16() -> None:
+    """fcos, retinanet and retinanet_r101 at 320 in bf16 on the card
+    against the same seeded weights in bf16 on the CPU, on the parity
+    canvases. The card runs the kernels' numerics (float32 through each
+    bias, one rounding per conv), the CPU the JAX bf16 graph's (the conv
+    rounded first), so detections near a cut (the confidence gate, the
+    top-k, NMS) may differ: `match_bf16` pairs them, and at least
+    BF16_MIN_MATCHED of the larger count must pair."""
+    from mydetection_tpu_torch import Detector
+
+    cases = parity_cases()
+    for name in ("fcos", "retinanet", "retinanet_r101"):
+        canvas, info, conf = cases[name]
+        runs = [Detector(name, device=device, input_size=canvas.shape[0],
+                         compute_dtype=torch.bfloat16, rng_seed=0)
+                .detect_prepared(canvas[None], [info], conf_thres=conf,
+                                 nms_iou=IOU_THRES)[0]
+                for device in ("cuda", "cpu")]
+        m = match_bf16(*runs)
+        frac = m["matched"] / max(len(runs[0]), len(runs[1]), 1)
+        print(f"parity bf16: {name}-{canvas.shape[0]} cuda vs cpu, "
+              f"{len(runs[0])} and {len(runs[1])} detections at conf {conf}: "
+              f"{m['matched']} matched ({frac:.3f} of the larger count; gate "
+              f">= {BF16_MIN_MATCHED[name]}) within {BF16_SCORE_TOL} score and "
+              f"{BF16_BOX_TOL} px, {m['unmatched_card']} card and "
+              f"{m['unmatched_cpu']} cpu unmatched; matched pairs max "
+              f"|d score| {m['max_d_score']:.3g}, max |d box| "
+              f"{m['max_d_box_px']:.3g} px", flush=True)
+        if frac < BF16_MIN_MATCHED[name]:
+            raise AssertionError(f"{name} bf16 cuda/cpu: {frac:.3f} of the "
+                                 f"detections matched, gate "
+                                 f"{BF16_MIN_MATCHED[name]}")
 
 
 def main_canvases(size: int):
@@ -1046,15 +1220,18 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
     the detections checked, then the batch's timing. Returns the NMS
     inputs (rotated: the suppress kernel's, and the boxes behind its IoU
     matrix; with capture_gn, every bias_gn_relu call's inputs too), the
-    gather's (src, sel) and every conv3x3_chain call's (x, packed,
-    biases) of the counted run."""
+    gather's (src, sel), every conv3x3_chain call's (x, packed,
+    biases) and every fused_bottleneck call's (x, folded) of the counted
+    run, and the routed blocks in call order."""
     from mydetection_tpu_torch import Detector, kernels
+    from mydetection_tpu_torch.kernels.bottleneck import fused_bottleneck
     from mydetection_tpu_torch.kernels.gather import gather_rows
     from mydetection_tpu_torch.kernels.gn import bias_gn_relu
     from mydetection_tpu_torch.kernels.nms import nms_keep
     from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
     from mydetection_tpu_torch.kernels.tower import conv3x3_chain
     from mydetection_tpu_torch.models import fcos as fcos_mod
+    from mydetection_tpu_torch.models import resnet as resnet_mod
     from mydetection_tpu_torch.models import retinanet as retina_mod
     from mydetection_tpu_torch.ops import nms as ops_nms
     from mydetection_tpu_torch.ops import rotated as ops_rot
@@ -1064,7 +1241,9 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
     rotated = det.cfg.rotated
     canvases, infos = main_canvases(size)
     det.warmup(batch_size=BATCH)
-    captured = {"gn": [], "chain": []}
+    captured = {"gn": [], "chain": [], "bottleneck": [],
+                "blocks": [m for m in det.model.modules()
+                           if isinstance(m, resnet_mod.Bottleneck) and m.fused]}
     pairwise = ops_rot.pairwise_rotated_iou
 
     def capture_nms(boxes, valid, thr):
@@ -1091,11 +1270,16 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         captured["gather"] = (src, sel)
         return gather_rows(src, sel)
 
+    def capture_bottleneck(x, *folded):
+        captured["bottleneck"].append((x, folded))
+        return fused_bottleneck(x, *folded)
+
     ops_nms.nms_keep = capture_nms
     ops_nms.gather_rows = capture_gather
     ops_rot.nms_from_iou_keep = capture_suppress
     ops_rot.pairwise_rotated_iou = capture_pairwise
     retina_mod.conv3x3_chain = capture_chain
+    resnet_mod.fused_bottleneck = capture_bottleneck
     if capture_gn:
         fcos_mod.bias_gn_relu = capture_gn_call
     try:
@@ -1109,6 +1293,7 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         ops_rot.nms_from_iou_keep = nms_from_iou_keep
         ops_rot.pairwise_rotated_iou = pairwise
         retina_mod.conv3x3_chain = conv3x3_chain
+        resnet_mod.fused_bottleneck = fused_bottleneck
         fcos_mod.bias_gn_relu = bias_gn_relu
     want = {fn.__name__: expect.get(fn.__name__, 0) for fn in kernels.KERNELS}
     if launches != want:
@@ -1379,6 +1564,83 @@ def gather_row(captured: dict) -> dict:
     return row
 
 
+def bottleneck_bound_ms(calls) -> tuple[float, str]:
+    """Least time for these fused_bottleneck calls (args x, folded):
+    2·B·H·W·(c_in·c_mid + 9·c_mid² + c_mid·c_out [+ c_in·c_out]) a block
+    over the tensor rate of x's dtype (bf16, else fp32), against x read
+    and the output written once, the folded weights and biases read
+    once, over HBM rate."""
+    ops = nbytes = 0
+    for x, f in calls:
+        b, c_in, h, w = x.shape
+        c_mid, c_out = f[0].shape[1], f[4].shape[1]
+        k = c_in * c_mid + 9 * c_mid * c_mid + c_mid * c_out
+        if f[6] is not None:
+            k += c_in * c_out
+        ops += 2 * b * h * w * k
+        nbytes += (x.numel() + b * h * w * c_out) * x.element_size() + sum(
+            t.numel() * t.element_size() for t in f if t is not None)
+    rate = BF16_OPS_PER_S if calls[0][0].dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@torch.no_grad()
+def bottleneck_row(captured: dict) -> dict:
+    """The fused bottleneck at a main path's own inputs: the 6 calls of
+    one forward, summed, and the largest call alone; the library
+    yardstick is the same blocks unfused on cuDNN (conv, BN, ReLU, the
+    shortcut, the add, in bf16)."""
+    from mydetection_tpu_torch.kernels.bottleneck import (
+        fused_bottleneck,
+        fused_bottleneck_plain,
+    )
+
+    calls, blocks = captured["bottleneck"], captured["blocks"]
+    err = 0.0
+    for x, f in calls:
+        got, again = fused_bottleneck(x, *f), fused_bottleneck(x, *f)
+        e, ok = bottleneck_error(got, fused_bottleneck_plain(x, *f))
+        if not ok or not torch.equal(got, again):
+            raise AssertionError(f"fused_bottleneck outside its gate of "
+                                 f"plain, or not bit-reproducible, on the "
+                                 f"main path's {tuple(x.shape)} input: "
+                                 f"{e:.3g}")
+        err = max(err, e)
+    ms = cuda_ms(lambda: [fused_bottleneck(x, *f) for x, f in calls], 5)
+    each = [cuda_ms(lambda: fused_bottleneck(x, *f), 10) for x, f in calls]
+    plain_ms = cuda_ms(lambda: [fused_bottleneck_plain(x, *f)
+                                for x, f in calls], 3)
+    lib_ms = cuda_ms(lambda: [blk.unfused(x) for blk, (x, _)
+                              in zip(blocks, calls)], 5)
+    big = int(np.argmax(each))
+    big_bound, _ = bottleneck_bound_ms([calls[big]])
+    bound, bound_by = bottleneck_bound_ms(calls)
+    shapes = [tuple(x.shape) for x, _ in calls]
+    print(f"bottleneck on the retinanet main path: {len(calls)} calls "
+          f"{shapes}, kernel {ms:.4f} ms summed (bound {bound:.4f} ms by "
+          f"{bound_by}), each {[round(t, 4) for t in each]} ms (the "
+          f"largest {each[big]:.4f} ms, bound {big_bound:.4f}), plain "
+          f"{plain_ms:.4f} ms, cuDNN unfused blocks {lib_ms:.4f} ms; "
+          f"max-scaled |d| {err:.3g}, bit-reproducible", flush=True)
+    return {
+        "name": "fused_bottleneck", "route": "cuda",
+        "source": "mydetection_tpu_torch/kernels/csrc/bottleneck.cu",
+        "replaces": "benchmarks/resnet_stage_experiments.py:76",
+        "launches": captured["launches"]["fused_bottleneck"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        "largest_ms": each[big], "largest_bound_ms": big_bound,
+        "note": "times sum the 6 calls of one retinanet-608 batch-32 bf16 "
+                "forward (stage 0 and stage 1's blocks 1-3); max_abs_err is "
+                "max-scaled against the plain version; library_ms is the "
+                "same blocks unfused on cuDNN (conv, BN, ReLU, shortcut, "
+                "add)",
+    }
+
+
 def train_step_gn_inputs(step, data, lr: float) -> dict:
     """Run one train step with the FCOS towers' `BiasGNReLU` swapped for
     a subclass that records what reaches the two trainable GN kernels:
@@ -1613,15 +1875,17 @@ def main() -> int:
     phase_gn_train()
     phase_rotated(np.random.RandomState(0))
     phase_tower()
+    phase_bottleneck()
     phase_gather(np.random.RandomState(0))
     phase_parity()
+    phase_parity_bf16()
     phase_train_parity()
     yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
     rows = [nms_row(yolo)]
     del yolo
     fcos = drive_main("fcos", 608, 0.005, smi,
-                      {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1},
-                      capture_gn=True)
+                      {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
+                       "fused_bottleneck": 6}, capture_gn=True)
     rows.append(gn_row(fcos))
     on_fcos = nms_row(fcos)
     print(f"nms on the fcos main path: kernel {on_fcos['ms']:.4f} ms (bound "
@@ -1631,14 +1895,16 @@ def main() -> int:
     rapid = drive_main("rapid", 1024, 0.3, smi, {"nms_from_iou_keep": 1})
     rows.append(rotated_row(rapid))
     del rapid
-    retina = drive_main("retinanet", 608, 0.005, smi,
-                        {"nms_keep": 1, "conv3x3_chain": 10, "gather_rows": 1})
-    rows += [tower_row(retina), gather_row(retina)]
+    retina_launches = {"nms_keep": 1, "conv3x3_chain": 10, "gather_rows": 1,
+                       "fused_bottleneck": 6}
+    retina = drive_main("retinanet", 608, 0.005, smi, retina_launches)
+    rows += [tower_row(retina), gather_row(retina), bottleneck_row(retina)]
     on_retina = nms_row(retina)
     print(f"nms on the retinanet main path: kernel {on_retina['ms']:.4f} ms "
           f"(bound {on_retina['bound_ms']:.6f} ms by {on_retina['bound_by']}), "
           f"plain {on_retina['plain_ms']:.3f} ms, bit-equal", flush=True)
     del retina
+    drive_main("retinanet_r101", 608, 0.005, smi, retina_launches)
     train = phase_train_main(smi)
     rows += [gn_fwd_stats_row(train), gn_bwd_row(train)]
     print(json.dumps({"kernels": rows}))

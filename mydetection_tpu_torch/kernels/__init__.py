@@ -4,6 +4,7 @@ Every wrapper here counts its launches in a `launches` attribute;
 `KERNELS` lists them so a run can reset and read every count.
 """
 
+from mydetection_tpu_torch.kernels.bottleneck import fused_bottleneck
 from mydetection_tpu_torch.kernels.gather import gather_rows
 from mydetection_tpu_torch.kernels.gn import (
     bias_gn_relu,
@@ -15,7 +16,7 @@ from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
 from mydetection_tpu_torch.kernels.tower import conv3x3_chain
 
 KERNELS = (nms_keep, bias_gn_relu, nms_from_iou_keep, bias_gn_relu_fwd_stats,
-           bias_gn_relu_bwd, conv3x3_chain, gather_rows)
+           bias_gn_relu_bwd, conv3x3_chain, gather_rows, fused_bottleneck)
 
 
 def reset_launches() -> None:

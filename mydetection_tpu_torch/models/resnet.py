@@ -10,6 +10,15 @@ The JAX package's stem folds (standardize, space-to-depth) and its
 block scan are TPU layout devices with the same math, so they are not
 ported. Module names follow the JAX tree (`stem.conv`,
 `stage0.block0.down.bn`, ...) so `convert.from_jax_params` maps 1:1.
+
+Six blocks — every block of stage 0 and stage 1's stride-1 blocks, the
+shapes of the TPU kernel `benchmarks/resnet_stage_experiments.py::
+fused_block` — run as one `kernels.bottleneck.fused_bottleneck` launch
+each on the card in eval mode when no gradient is needed, their BN
+folded into the weights once per call. Everywhere else (the CPU, train
+mode, autograd, stride-2 blocks, stages 2 and 3) a block is the JAX
+`_bottleneck(train=False)` arithmetic: conv, BN in the activation
+dtype, ReLU.
 """
 
 from __future__ import annotations
@@ -17,6 +26,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mydetection_tpu_torch.kernels.bottleneck import (
+    fold_bottleneck,
+    fused_bottleneck,
+)
 from mydetection_tpu_torch.models.layers import (
     ConvBN,
     max_pool,
@@ -36,20 +49,46 @@ def prepare_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return standardize_imagenet(x.to(compute_dtype))
 
 
+def fused_route(stage: int, block: int) -> bool:
+    """Whether block `block` of stage `stage` is routed to the fused
+    kernel: all of stage 0 and stage 1 from block 1 on, the TPU
+    kernel's own stages (`resnet_stage_experiments.py`'s stage list)."""
+    return stage == 0 or (stage == 1 and block >= 1)
+
+
 class Bottleneck(nn.Module):
-    def __init__(self, c_in: int, c_out: int, stride: int, downsample: bool):
+    def __init__(self, c_in: int, c_out: int, stride: int, downsample: bool,
+                 fused: bool = False):
         super().__init__()
+        if fused and stride != 1:
+            raise ValueError("the fused bottleneck kernel runs at stride 1")
         c_mid = c_out // 4
+        self.fused = fused
         self.conv1 = ConvBN(c_in, c_mid, 1)
         self.conv2 = ConvBN(c_mid, c_mid, 3, stride)
         self.conv3 = ConvBN(c_mid, c_out, 1, relu=False)
         self.down = (ConvBN(c_in, c_out, 1, stride, relu=False)
                      if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        """Whether `forward(x)` launches the fused kernel: a routed block,
+        x on the card, eval mode, and no gradient needed."""
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        return (self.fused and x.device.type == "cuda" and not self.training
+                and not needs_grad)
+
+    def unfused(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX `_bottleneck`: conv → BN → ReLU twice, conv → BN, the
+        shortcut, the residual add and the ReLU."""
         y = self.conv3(self.conv2(self.conv1(x)))
         sc = x if self.down is None else self.down(x)
         return torch.relu(y + sc)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_kernel(x):
+            return fused_bottleneck(x, *fold_bottleneck(self, x.dtype))
+        return self.unfused(x)
 
 
 class ResNet(nn.Module):
@@ -66,7 +105,7 @@ class ResNet(nn.Module):
                 stage.add_module(f"block{bi}", Bottleneck(
                     c_in if bi == 0 else c_out, c_out,
                     stride=2 if si > 0 and bi == 0 else 1,
-                    downsample=bi == 0))
+                    downsample=bi == 0, fused=fused_route(si, bi)))
             self.add_module(f"stage{si}", stage)
             c_in = c_out
 

@@ -1,9 +1,10 @@
 """The port on the card: the CUDA NMS, bias+GroupNorm+ReLU (forward,
 forward with statistics, fused backward), rotated-NMS suppress, conv
-chain and row gather kernels against their plain versions, the CUDA
-Detectors (yolov3, fcos, rapid, retinanet) against the CPU ones, and
-the CUDA fcos train step against the CPU one. Every test skips on a host without a GPU. This file imports no
-JAX, so it runs where JAX is not installed:
+chain, row gather and fused bottleneck kernels against their plain
+versions, the CUDA Detectors (yolov3, fcos, rapid, retinanet,
+retinanet_r101) against the CPU ones, and the CUDA fcos train step
+against the CPU one. Every test skips on a host without a GPU. This
+file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
@@ -17,6 +18,8 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     GN_GROUPS,
+    bottleneck_case,
+    bottleneck_error,
     check_parity,
     check_gn_train_case,
     compare_rotated,
@@ -35,6 +38,10 @@ from chip_smoke import (  # noqa: E402
     tower_error,
 )
 from mydetection_tpu_torch import Detector, kernels  # noqa: E402
+from mydetection_tpu_torch.kernels.bottleneck import (  # noqa: E402
+    fused_bottleneck,
+    fused_bottleneck_plain,
+)
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu,
     bias_gn_relu_bwd,
@@ -220,14 +227,16 @@ def _cuda_vs_cpu(name, size, conf, canvas, info, kernel_launches):
 
 def test_cuda_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image(), 416, 8, 58)
-    _cuda_vs_cpu("yolov3", 416, 0.25, canvas, info, {nms_keep: 1})
+    _cuda_vs_cpu("yolov3", 416, 0.25, canvas, info,
+                 {nms_keep: 1, fused_bottleneck: 0})
 
 
 def test_cuda_fcos_detector_matches_cpu(cuda):
-    """40 GN launches (8 tower GNs x 5 levels) and one NMS launch."""
+    """40 GN launches (8 tower GNs x 5 levels), one NMS launch and six
+    fused bottlenecks (stage 0, stage 1's blocks 1-3)."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("fcos", 320, 0.005, canvas, info,
-                 {nms_keep: 1, bias_gn_relu: 40})
+                 {nms_keep: 1, bias_gn_relu: 40, fused_bottleneck: 6})
 
 
 def test_cuda_rapid_detector_matches_cpu(cuda):
@@ -235,7 +244,8 @@ def test_cuda_rapid_detector_matches_cpu(cuda):
     rotated gates."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("rapid", 320, 0.3, canvas, info, {nms_from_iou_keep: 1,
-                                                   nms_keep: 0})
+                                                   nms_keep: 0,
+                                                   fused_bottleneck: 0})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -318,20 +328,22 @@ def test_cuda_train_step_matches_cpu(cuda):
     assert gpu["launches"]["bias_gn_relu_fwd_stats"] == 40
     assert gpu["launches"]["bias_gn_relu_bwd"] == 40
     assert gpu["launches"]["bias_gn_relu"] == 0
+    assert gpu["launches"]["fused_bottleneck"] == 0
     assert gpu["totals"][-1] < gpu["totals"][0]
 
 
 def test_fcos_detect_launches_no_train_kernel(cuda):
     """Detect runs under inference mode: the inference GN kernel 40
-    times, the NMS and the class-row gather once, the trainable GN
-    kernels never."""
+    times, the NMS and the class-row gather once, the fused bottleneck
+    six times, the trainable GN kernels never."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     det = Detector("fcos", device="cuda", input_size=320, rng_seed=0)
     kernels.reset_launches()
     det.detect_prepared(canvas[None], [info], conf_thres=0.005)
     got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
-    want.update(bias_gn_relu=40, nms_keep=1, gather_rows=1)
+    want.update(bias_gn_relu=40, nms_keep=1, gather_rows=1,
+                fused_bottleneck=6)
     assert got == want
 
 
@@ -449,10 +461,18 @@ def test_cuda_retinanet_detector_matches_cpu(cuda, no_tf32):
     plus twice the CPU's own float32 error (the largest distance of its
     boxes from a float64 run's), row by row or by a one-to-one match;
     the CUDA run launches the NMS once, the chain 10 times and the
-    gather once."""
+    gather once, the fused bottleneck six times."""
     check_parity("retinanet", *noise_canvas(320), 0.005,
-                 {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1},
-                 box_floor=True)
+                 {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1,
+                  fused_bottleneck: 6}, box_floor=True)
+
+
+def test_cuda_retinanet_r101_detector_matches_cpu(cuda, no_tf32):
+    """The same parity for ResNet-101: six fused bottlenecks too (the
+    deeper stage 2 stays on cuDNN)."""
+    check_parity("retinanet_r101", *noise_canvas(320), 0.005,
+                 {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1,
+                  fused_bottleneck: 6}, box_floor=True)
 
 
 def test_retinanet_detect_launches(cuda):
@@ -462,6 +482,79 @@ def test_retinanet_detect_launches(cuda):
     dets = det.detect_prepared(canvas[None], [info], conf_thres=0.005)
     got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
-    want.update(nms_keep=1, conv3x3_chain=10, gather_rows=1)
+    want.update(nms_keep=1, conv3x3_chain=10, gather_rows=1,
+                fused_bottleneck=6)
     assert got == want
     assert len(dets[0]) > 0 and np.isfinite(dets[0].boxes_xyxy).all()
+
+
+# (B, H, W, c_in, c_out): the routed 608 block shapes at batch 4, and
+# ragged maps with and without a projection
+BOTTLENECK_SHAPES = [(4, 152, 152, 64, 256), (4, 152, 152, 256, 256),
+                     (4, 76, 76, 512, 512), (2, 9, 13, 64, 256),
+                     (2, 9, 13, 512, 512), (3, 17, 5, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BOTTLENECK_SHAPES)
+def test_bottleneck_kernel_matches_plain(cuda, no_tf32, shape, dtype):
+    """chip_smoke's gates, max-scaled: float32 2e-5, bf16 0.05; two runs
+    bit for bit; one launch a call."""
+    b, h, w, c_in, c_out = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, f = bottleneck_case(gen, b, h, w, c_in, c_out, getattr(torch, dtype))
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(x, *f)
+    again = fused_bottleneck(x, *f)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == before + 2
+    assert got.dtype == x.dtype and got.shape == (b, c_out, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    err, ok = bottleneck_error(got, fused_bottleneck_plain(x, *f))
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bottleneck_kernel_zeroes_the_halo(cuda, no_tf32, dtype):
+    """BN biases of 3 make relu(b1') large: a halo pixel computed as
+    relu(b1') instead of zero would move every border output."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, f = bottleneck_case(gen, 2, 9, 13, 64, 256, getattr(torch, dtype),
+                           bn_bias=3.0)
+    err, ok = bottleneck_error(fused_bottleneck(x, *f),
+                               fused_bottleneck_plain(x, *f))
+    assert ok, err
+
+
+def test_bottleneck_kernel_raises_under_autograd(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, f = bottleneck_case(gen, 1, 5, 5, 256, 256, torch.float32)
+    before = fused_bottleneck.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fused_bottleneck(x.requires_grad_(), *f)
+    with torch.no_grad():
+        fused_bottleneck(x, *f)
+    assert fused_bottleneck.launches == before + 1
+
+
+def test_bottleneck_kernel_rejects_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, f = bottleneck_case(gen, 1, 5, 5, 64, 256, torch.float32)
+    before = fused_bottleneck.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        fused_bottleneck(x.contiguous(), *f)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_bottleneck(x.half(), *f)
+    with pytest.raises(ValueError, match="c_mid"):
+        fused_bottleneck(x, f.w1[:, :32].contiguous(), f.b1[:32],
+                         *f[2:])
+    with pytest.raises(ValueError, match="both wd and bd"):
+        fused_bottleneck(x, *f[:7])
+    with pytest.raises(ValueError, match="must equal c_out"):
+        fused_bottleneck(x, *f[:6])
+    with pytest.raises(ValueError, match="w2"):
+        fused_bottleneck(x, *f[:2], f.w2.bfloat16(), *f[3:])
+    with pytest.raises(ValueError, match="b3"):
+        fused_bottleneck(x, *f[:5], f.b3.cpu(), *f[6:])
+    assert fused_bottleneck.launches == before
