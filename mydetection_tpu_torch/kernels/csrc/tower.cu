@@ -19,22 +19,57 @@
 // Numerics, the TPU kernel's: a float32 accumulator, the float32 bias
 // added to it, the ReLU, then one rounding to x's type per layer.
 //
-// bf16: a block owns a 128 x 128 output tile and walks K in chunks of
-// 32 through two shared-memory buffers (the next chunk's global loads
-// are issued before the current chunk's products). Eight warps, 4
-// along M by 2 along N, each hold 2 x 4 nvcuda::wmma 16x16x16 bf16
-// fragments with float accumulators. A thread stages two 16-byte
-// vectors of A (8 channels of one tap of one pixel, zero where the tap
-// leaves the image or the pixel is past M) and two of Wt per chunk.
-// The epilogue goes through a 16x16 float tile per warp in shared
-// memory: bias, ReLU, round, one 16-byte store per lane.
+// Bound on an H100: operations. At batch 32 and 608 the ten calls of a
+// forward do 2.33 TFLOP of bf16 products against about 0.3 GB moved,
+// 2.35 ms at 989 TFLOP/s. Only wgmma reaches that rate, and a block of
+// wgmma needs its operands in shared memory ahead of it.
+//
+// bf16 (C a multiple of 64): one wgmma kernel, replacing an earlier
+// nvcuda::wmma (mma.sync) kernel whose loads went through registers into
+// two buffers, with a 128 x 128 tile that gathered A once per N half.
+//   - Tiles. A block owns BM x BN outputs with two consumer warpgroups:
+//     at BM = 128 each takes 64 rows and all BN columns (128 x 256 at
+//     C = 256: the whole N, so A is gathered once), at BM = 64 each
+//     takes all rows and half the columns. Each runs wgmma.mma_async
+//     m64nNk16 bf16 -> f32 with both operands in shared memory and keeps
+//     one wgmma group in flight (wait_group 1).
+//   - Ring. K advances 64 at a time, one 128-byte row of one tap's
+//     channels (a chunk never straddles two taps), through 4 stages of
+//     shared memory (A BM x 64 and Wt 64 x BN; 48 KB at 128 x 256).
+//     One producer thread (a third warpgroup, its registers given to the
+//     consumers by setmaxnreg) fills a stage with TMA as soon as both
+//     consumer warpgroups release it (an mbarrier pair a stage, full and
+//     empty), so three chunks are in flight ahead of the products:
+//       A: the 9-tap gather is TMA's im2col mode: one box of BM output
+//          pixels x 64 channels, walked in flat (B, H, W) order from the
+//          tile's first pixel, each pixel shifted by the tap; a pixel off
+//          the image, or past the batch, reads zero (the TPU kernel's
+//          border mask);
+//       Wt: 64 x 64 boxes of the packed weights, which are N-contiguous,
+//          so MN-major (the transpose bit) in 64-column blocks.
+//     Both land in the 128-byte swizzle the wgmma descriptors name
+//     (16-byte column c of 128-byte row r at c ^ (r % 8)). The
+//     descriptors of the weights and of each layer's input are encoded
+//     on the host per call.
+//   - Small levels. The launcher takes 64 x 128 tiles (two blocks an
+//     SM, four times the blocks) where 128-row tiles would occupy fewer
+//     than half the SMs (P6 and P7 at batch 32: 25 and 7 tiles). P5's
+//     91 keep the large tile, which measured faster there than 362
+//     small ones.
+//   - Epilogue. Bias, ReLU and the rounding in float32 straight from
+//     the accumulator fragment (row lane/4 (+8), columns 2 * (lane%4)
+//     (+1) of each 8-column group), rows past M masked, bf16 pairs
+//     stored channels_last.
+// Measured on an H100 (PERF.md §6): loading A with cp.async 16 B
+// (zero-filled by src-size 0) left P3 at 51% of its bound, TMA for Wt
+// alone at 57%, and TMA for both at 64%.
 //
 // float32 (the parity runs): a SIMT tile of 64 x 64, K in chunks of
 // 16, 4 x 4 outputs a thread, accumulated with explicit fmaf in k
 // order (the build's -fmad=false does not touch an explicit fmaf).
 //
-// Both sum every output in one fixed order, so two runs give the same
-// bits.
+// Both sum every output in one fixed order, with no split of K and no
+// atomics, so two runs give the same bits.
 //
 // Layers: the host launches one kernel per layer, ping-ponging between
 // the caller's output and one scratch slab, so the intermediates go
@@ -42,177 +77,396 @@
 // VMEM; P3 at 608 is 2.9 MB a image in bf16, more than an SM's 228 KB
 // of shared memory. Keeping a layer's output on chip (clusters sharing
 // their shared memory, a halo exchange between them) is later work.
-//
-// Bound on an H100: operations. At batch 32 and 608 the ten calls of a
-// forward do 2.33 TFLOP of bf16 products against about 0.3 GB moved,
-// ~2.4 ms at 989 TFLOP/s. This first version does not use wgmma or TMA
-// and leaves the tensor cores well short of that rate; it is right
-// before it is fast.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <cudaTypedefs.h>
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-// ---- bf16 tensor-core path -------------------------------------------------
+// ---- bf16 wgmma path -------------------------------------------------------
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;     // 8 warps: 4 along M x 2 along N
-constexpr int kApad = kBK + 8;    // A tile row stride (elements)
-constexpr int kBpad = kBN + 8;    // Wt tile row stride (elements)
-constexpr int kWarpM = 32;        // a warp's rows
-constexpr int kWarpN = 64;        // a warp's columns
+constexpr int kWgThreads = 384;       // two consumer warpgroups, a producer
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ wt,
-                    const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ out, int m_total, int h,
-                    int w, int c) {
-  __shared__ __align__(128) __nv_bfloat16 as[2][kBM][kApad];
-  __shared__ __align__(128) __nv_bfloat16 bs[2][kBK][kBpad];
-  __shared__ __align__(128) float cs[kThreads / 32][16 * 16];
+constexpr int kStages = 4;
+constexpr int kBK = 64;               // K a chunk: one 128-byte swizzle row
+constexpr int kRowBytes = kBK * 2;
+constexpr int kBlockBytes = kBK * kRowBytes;  // 64 x 64 bf16, 8 KB
+// a layer whose 128-row tiles would occupy fewer than half of an H100's
+// 132 SMs takes the 64 x 128 tile
+constexpr int kSmallTileBelow = 66;
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int kWN = BM == 128 ? BN : BN / 2;  // a warpgroup's columns
+  static constexpr int kABytes = BM * kRowBytes;
+  static constexpr int kStageBytes = kABytes + BN * kRowBytes;
+  // + 1024: the ring starts on a 1024-byte boundary (a swizzle atom)
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival on `bar` that also expects `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// a 64 x 64 box of the packed weights (columns col.., rows row..) into
+// shared memory in the 128-byte swizzle; completes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// BM pixels of x, 64 channels each, for one tap: the im2col box that
+// starts at output pixel (n, hq, wq), shifted by the tap (fx, fy) in
+// 0..2; pixels off the image or past the batch read zero
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
+                                           int ci, int wq, int hq, int n,
+                                           uint16_t fx, uint16_t fy,
+                                           uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(ci), "r"(wq), "r"(hq), "r"(n),
+      "r"(bar), "h"(fx), "h"(fy)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// D (64 x N f32, in registers) += A (64 x 16, K-major) * B (16 x N,
+// MN-major), both from shared memory
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int WN>
+__device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b) {
+  if constexpr (WN == 256) {
+    wgmma_n256(d, a, b);
+  } else {
+    static_assert(WN == 64, "a warpgroup takes 256 or 64 columns");
+    wgmma_n64(d, a, b);
+  }
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(kWgThreads, BM == 64 ? 2 : 1)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, int w_row0,
+                     const float* __restrict__ bias, bf16* __restrict__ out,
+                     int m_total, int h, int w, int c) {
+  using T = Tile<BM, BN>;
+  constexpr int kWN = T::kWN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full, then empty
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = smem_u32(bars);
+  const uint32_t empty = full + 8 * kStages;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int warp_m = warp / 2;
-  const int warp_n = warp % 2;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int k_total = 9 * c;
-  const int hw = h * w;
-
-  // A staging: rows tid/4 and tid/4 + 64, channels (tid%4)*8 .. +8 of
-  // the chunk. Their pixel coordinates stay fixed over the K walk.
-  const int a_vec = tid % 4;
-  int a_m[2], a_h[2], a_w[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    a_m[i] = m0 + tid / 4 + i * 64;
-    const int rem = a_m[i] % hw;
-    a_h[i] = rem / w;
-    a_w[i] = rem % w;
+  const int wg = tid / 128;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int chunks = 9 * c / kBK;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Wt staging: rows tid/16 and tid/16 + 16 of the chunk, columns
-  // (tid%16)*8 .. +8 of the tile.
-  const int b_row = tid / 16;
-  const int b_col = (tid % 16) * 8;
-
-  uint4 a_reg[2], b_reg[2];
-  auto load_chunk = [&](int kc) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = kc * kBK + a_vec * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (a_m[i] < m_total && k < k_total) {
-        const int tap = k / c;
-        const int ci = k - tap * c;
-        const int dy = tap / 3 - 1;
-        const int dx = tap % 3 - 1;
-        const int hs = a_h[i] + dy;
-        const int ws = a_w[i] + dx;
-        if (hs >= 0 && hs < h && ws >= 0 && ws < w) {
-          const int64_t src = static_cast<int64_t>(a_m[i] + dy * w + dx) * c + ci;
-          v = *reinterpret_cast<const uint4*>(x + src);
-        }
-      }
-      a_reg[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = kc * kBK + b_row + i * 16;
-      const int n = n0 + b_col;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < k_total && n < c) {
-        v = *reinterpret_cast<const uint4*>(
-            wt + static_cast<int64_t>(k) * c + n);
-      }
-      b_reg[i] = v;
-    }
-  };
-  auto store_chunk = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&as[buf][tid / 4 + i * 64][a_vec * 8]) =
-          a_reg[i];
-      *reinterpret_cast<uint4*>(&bs[buf][b_row + i * 16][b_col]) = b_reg[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int chunks = (k_total + kBK - 1) / kBK;
-  load_chunk(0);
-  store_chunk(0);
   __syncthreads();
-  for (int kc = 0; kc < chunks; ++kc) {
-    const int cur = kc & 1;
-    if (kc + 1 < chunks) load_chunk(kc + 1);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &as[cur][warp_m * kWarpM + i * 16][kk * 16],
-                               kApad);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], &bs[cur][kk * 16][warp_n * kWarpN + j * 16],
-                               kBpad);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (kc + 1 < chunks) store_chunk(cur ^ 1);
-    __syncthreads();
-  }
 
-  // epilogue: a lane takes row lane/2, columns (lane%2)*8 .. +8 of each
-  // 16x16 fragment
-  float* tile = cs[warp];
-  const int er = lane / 2;
-  const int ec = (lane % 2) * 8;
+  if (wg == 2) {
+    // producer: one thread keeps the ring full with TMA copies
+    if constexpr (kWN == 256) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
+    if (tid == 256) {
+      const int hw = h * w;
+      const int img = m0 / hw;
+      const int hq = (m0 % hw) / w;
+      const int wq = m0 % w;
+      for (int kc = 0; kc < chunks; ++kc) {
+        const int s = kc % kStages;
+        mbar_wait(empty + 8 * s, ((kc / kStages) & 1) ^ 1);
+        const uint32_t stage = ring + s * T::kStageBytes;
+        const int k0 = kc * kBK;
+        const int tap = k0 / c;
+        mbar_expect(full + 8 * s, (BM + BN) * kRowBytes);
+        // the box's corner is the tap window's top left: (hq - 1, wq - 1)
+        tma_im2col(stage, &xmap, k0 - tap * c, wq - 1, hq - 1, img,
+                   static_cast<uint16_t>(tap % 3),
+                   static_cast<uint16_t>(tap / 3), full + 8 * s);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(tile, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + warp_m * kWarpM + i * 16 + er;
-      const int n = n0 + warp_n * kWarpN + j * 16 + ec;
-      if (m < m_total && n < c) {
-        __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float y = tile[er * 16 + ec + e] + bias[n + e];
-          v[e] = __float2bfloat16_rn(fmaxf(y, 0.0f));
+        for (int j = 0; j < BN / 64; ++j) {
+          tma_load(stage + T::kABytes + j * kBlockBytes, &wmap, n0 + 64 * j,
+                   w_row0 + k0, full + 8 * s);
         }
-        *reinterpret_cast<uint4*>(out + static_cast<int64_t>(m) * c + n) =
-            *reinterpret_cast<const uint4*>(v);
       }
-      __syncwarp();
+    }
+  } else {
+    if constexpr (kWN == 256) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    }
+    float acc[kWN / 2];
+#pragma unroll
+    for (int i = 0; i < kWN / 2; ++i) acc[i] = 0.0f;
+    // this warpgroup's operands inside a stage
+    const uint32_t a_off = BM == 128 ? wg * 64 * kRowBytes : 0;
+    const uint32_t b_off =
+        T::kABytes + (BM == 128 ? 0 : wg * (kWN / 64) * kBlockBytes);
+    for (int kc = 0; kc < chunks; ++kc) {
+      const int s = kc % kStages;
+      mbar_wait(full + 8 * s, (kc / kStages) & 1);
+      const uint32_t stage = ring + s * T::kStageBytes;
+      fence_acc<kWN / 2>(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // A: next 16 K = 32 bytes along the swizzled row; 8-row groups
+        // 1024 bytes apart. Wt: next 16 K = 16 rows; 64-column blocks
+        // kBlockBytes apart, 8-row groups 1024 bytes apart.
+        const uint64_t da = sw128_desc(stage + a_off + kk * 32, 16, 1024);
+        const uint64_t db = sw128_desc(stage + b_off + kk * 16 * kRowBytes,
+                                       kBlockBytes, 1024);
+        wgmma<kWN>(acc, da, db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc<kWN / 2>(acc);
+      // the products of chunk kc - 1 are done: its stage may refill
+      if (kc > 0) mbar_arrive(empty + 8 * ((kc - 1) % kStages));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc<kWN / 2>(acc);
+
+    // acc[4j + 2 half + e] is row lane/4 + 8 half, column 8j + 2 (lane%4)
+    // + e of the warpgroup's 64 x kWN tile (warp q: rows 16q .. 16q + 15)
+    const int lane = tid % 32;
+    const int row = m0 + (BM == 128 ? wg * 64 : 0) + ((tid % 128) / 32) * 16 +
+                    lane / 4;
+    const int col = n0 + (BM == 128 ? 0 : wg * kWN) + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) {
+      const int n = col + j * 8;
+      const float2 bv = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = row + half * 8;
+        if (m < m_total) {
+          const float y0 = fmaxf(acc[4 * j + 2 * half] + bv.x, 0.0f);
+          const float y1 = fmaxf(acc[4 * j + 2 * half + 1] + bv.y, 0.0f);
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<int64_t>(m) * c + n) =
+              __floats2bfloat162_rn(y0, y1);
+        }
+      }
     }
   }
 }
 
+template <typename Fn>
+Fn libcuda_entry(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  return reinterpret_cast<Fn>(fn);
+}
+
+// The TMA descriptor of the packed weights, (rows, C) bf16 row-major,
+// read in 64 x 64 boxes in the 128-byte swizzle. The encoders live in
+// libcuda and are looked up through the runtime's entry-point query,
+// so the library needs no -lcuda.
+cudaError_t weight_map(CUtensorMap* map, const bf16* wt, int rows, int c) {
+  static const auto encode =
+      libcuda_entry<PFN_cuTensorMapEncodeTiled_v12000>("cuTensorMapEncodeTiled");
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * 2};
+  const cuuint32_t box[2] = {64, kBK};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(wt), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The im2col TMA descriptor of x (B, H, W, C) bf16: `pixels` output
+// pixels a box, 64 channels each, in the 128-byte swizzle; the window of
+// a 3x3 "same" conv (corners -1, -1: a box's coordinates are its first
+// output pixel less one in H and W, the tap offsets 0..2).
+cudaError_t x_map(CUtensorMap* map, const bf16* x, int b, int h, int w, int c,
+                  int pixels) {
+  static const auto encode = libcuda_entry<PFN_cuTensorMapEncodeIm2col_v12000>(
+      "cuTensorMapEncodeIm2col");
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+      static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c) * 2,
+                                 static_cast<cuuint64_t>(w) * c * 2,
+                                 static_cast<cuuint64_t>(h) * w * c * 2};
+  const int lower[2] = {-1, -1};
+  const int upper[2] = {-1, -1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
+      strides, lower, upper, kBK, pixels, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+cudaError_t launch_wgmma(const bf16* x, const CUtensorMap& wmap, int w_row0,
+                         const float* bias, bf16* out, int b, int h, int w,
+                         int c, cudaStream_t stream) {
+  constexpr int smem = Tile<BM, BN>::kSmemBytes;
+  CUtensorMap xmap;
+  cudaError_t err = x_map(&xmap, x, b, h, w, c, BM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_wgmma_kernel<BM, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int m_total = b * h * w;
+  const dim3 grid((m_total + BM - 1) / BM, c / BN);
+  conv3x3_wgmma_kernel<BM, BN><<<grid, kWgThreads, smem, stream>>>(
+      xmap, wmap, w_row0, bias, out, m_total, h, w, c);
+  return cudaGetLastError();
+}
+
+// One bf16 layer. 128 x 256 tiles where C is a multiple of 256 (128 x 64
+// otherwise); 64 x 128 tiles where the 128-row tiles would be fewer than
+// kSmallTileBelow blocks.
+cudaError_t conv3x3_bf16(const bf16* x, const CUtensorMap& wmap, int w_row0,
+                         const float* bias, bf16* out, int b, int h, int w,
+                         int c, cudaStream_t stream) {
+  const int64_t big = static_cast<int64_t>((b * h * w + 127) / 128) *
+                      (c % 256 == 0 ? c / 256 : c / 64);
+  if (c % 128 == 0 && big < kSmallTileBelow) {
+    return launch_wgmma<64, 128>(x, wmap, w_row0, bias, out, b, h, w, c,
+                                 stream);
+  }
+  if (c % 256 == 0) {
+    return launch_wgmma<128, 256>(x, wmap, w_row0, bias, out, b, h, w, c,
+                                  stream);
+  }
+  return launch_wgmma<128, 64>(x, wmap, w_row0, bias, out, b, h, w, c, stream);
+}
+
 // ---- float32 SIMT path -----------------------------------------------------
 
+constexpr int kThreads = 256;
 constexpr int kFM = 64;
 constexpr int kFN = 64;
 constexpr int kFK = 16;
@@ -313,21 +567,26 @@ int launch_chain(const T* x, const T* wt, const float* bias, T* out,
                  cudaStream_t stream) {
   const int m_total = b * h * w;
   const int64_t layer_w = static_cast<int64_t>(9) * c * c;
+  CUtensorMap wmap;
+  if constexpr (sizeof(T) == 2) {
+    const cudaError_t err = weight_map(&wmap, wt, layers * 9 * c, c);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const T* src = x;
   for (int l = 0; l < layers; ++l) {
     // the last layer writes `out`, and the ones before alternate so
     // that no layer reads the slab it writes
     T* dst = ((layers - 1 - l) % 2 == 0) ? out : scratch;
+    cudaError_t err;
     if constexpr (sizeof(T) == 2) {
-      const dim3 grid((m_total + kBM - 1) / kBM, (c + kBN - 1) / kBN);
-      conv3x3_bf16_kernel<<<grid, kThreads, 0, stream>>>(
-          src, wt + l * layer_w, bias + l * c, dst, m_total, h, w, c);
+      err = conv3x3_bf16(src, wmap, l * 9 * c, bias + l * c, dst, b, h, w, c,
+                         stream);
     } else {
       const dim3 grid((m_total + kFM - 1) / kFM, (c + kFN - 1) / kFN);
       conv3x3_f32_kernel<<<grid, kThreads, 0, stream>>>(
           src, wt + l * layer_w, bias + l * c, dst, m_total, h, w, c);
+      err = cudaGetLastError();
     }
-    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
   }
@@ -339,9 +598,10 @@ int launch_chain(const T* x, const T* wt, const float* bias, T* out,
 extern "C" {
 
 // x, out, scratch: (B, H, W, C) in memory, 16-byte aligned; wt: (L, 9*C,
-// C) in x's type; bias: (L, C) float32; C a multiple of 16. dtype: 0 =
-// float32, 1 = bfloat16. Launches L kernels on `stream` and returns the
-// first cudaError_t that is not cudaSuccess, else 0.
+// C) in x's type, 16-byte aligned; bias: (L, C) float32; C a multiple of
+// 16 in float32, of 64 in bfloat16. dtype: 0 = float32, 1 = bfloat16.
+// Launches L kernels on `stream` and returns the first cudaError_t that
+// is not cudaSuccess, else 0.
 int conv3x3_chain_launch(const void* x, const void* wt, const float* bias,
                          void* out, void* scratch, int layers, int b, int h,
                          int w, int c, int dtype, void* stream) {

@@ -5,13 +5,16 @@ plain version.
 tower_kernel.py::conv3x3_chain_pallas_impl` (`_chain_kernel`), the
 RetinaNet head towers. On a CUDA tensor it launches `csrc/tower.cu`
 (one implicit-GEMM kernel per layer, counted as one launch of the
-chain), or raises; only a CPU tensor takes the plain version,
+chain; in bf16 a `wgmma` kernel fed from a ring of shared-memory
+stages), or raises; only a CPU tensor takes the plain version,
 `conv3x3_chain_plain`, the loop of `mydetection_tpu/models/
 retinanet.py::_subnet`: the conv in x's dtype, then the bias cast to
 that dtype, then the ReLU. The kernel keeps a float32 accumulator
 through the bias and the ReLU and rounds once per layer, as the TPU
 kernel does; in float32 the two differ only in the order of the sums,
-in bf16 also by that rounding.
+in bf16 also by that rounding. `conv3x3_chain_reference` follows the
+kernel's order of rounding instead: the check that holds the bf16
+kernel to its arithmetic, pinned to the Pallas kernel on the CPU.
 
 The weights are packed once per subnet and forward by `pack_weights`:
 (L, 9·C, C) in the activation dtype, row (t·C + c_in) of layer l being
@@ -67,19 +70,36 @@ def conv3x3_chain_plain(x: torch.Tensor, packed: torch.Tensor,
     return x
 
 
+def conv3x3_chain_reference(x: torch.Tensor, packed: torch.Tensor,
+                            biases: torch.Tensor) -> torch.Tensor:
+    """The kernel's (and the TPU kernel's) arithmetic in the plain
+    version's ops: for each layer a float32 conv of x's values (bf16
+    values are exact in float32), the float32 bias added, the ReLU,
+    then one rounding to x's dtype. Same arguments as
+    `conv3x3_chain_plain`; on the card, run it with TF32 off."""
+    dtype = x.dtype
+    for w, b in zip(unpack_weights(packed), biases):
+        y = conv2d(x.float(), w.float())
+        x = torch.relu(y + b.float()[:, None, None]).to(dtype)
+    return x
+
+
 def _check_cuda(x: torch.Tensor, packed: torch.Tensor,
                 biases: torch.Tensor) -> None:
     """What the kernel takes: x a 4-D float32 or bfloat16 tensor on the
-    card in channels_last memory, 16-byte aligned, C a multiple of 16;
-    packed a contiguous (L, 9·C, C) tensor of x's dtype, L ≥ 1, and
-    biases a contiguous float32 (L, C) tensor, both on x's device."""
+    card in channels_last memory, 16-byte aligned, C a multiple of 16
+    in float32 and of 64 in bfloat16 (the wgmma kernel's K chunk is 64
+    channels of one tap); packed a contiguous, 16-byte aligned
+    (L, 9·C, C) tensor of x's dtype, L ≥ 1, and biases a contiguous
+    float32 (L, C) tensor, both on x's device."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"conv3x3_chain: x must be a 4-D float32 or "
                          f"bfloat16 tensor, got {tuple(x.shape)} {x.dtype}")
     c = x.shape[1]
-    if c % 16:
+    multiple = 64 if x.dtype == torch.bfloat16 else 16
+    if c % multiple:
         raise ValueError(f"conv3x3_chain: {c} channels are not a multiple "
-                         f"of 16")
+                         f"of {multiple} ({x.dtype})")
     if not x.is_contiguous(memory_format=torch.channels_last) \
             or x.data_ptr() % 16:
         raise ValueError(f"conv3x3_chain reads 16-byte aligned "
@@ -88,11 +108,13 @@ def _check_cuda(x: torch.Tensor, packed: torch.Tensor,
     layers = packed.shape[0] if packed.dim() == 3 else 0
     if layers < 1 or packed.shape != (layers, 9 * c, c) \
             or packed.dtype != x.dtype \
-            or packed.device != x.device or not packed.is_contiguous():
+            or packed.device != x.device or not packed.is_contiguous() \
+            or packed.data_ptr() % 16:
         raise ValueError(f"conv3x3_chain: packed weights must be a "
-                         f"contiguous (L, {9 * c}, {c}) {x.dtype} tensor on "
-                         f"{x.device}, got {tuple(packed.shape)} "
-                         f"{packed.dtype} on {packed.device}")
+                         f"contiguous, 16-byte aligned (L, {9 * c}, {c}) "
+                         f"{x.dtype} tensor on {x.device}, got "
+                         f"{tuple(packed.shape)} {packed.dtype} on "
+                         f"{packed.device}")
     if biases.shape != (layers, c) or biases.dtype != torch.float32 \
             or biases.device != x.device or not biases.is_contiguous():
         raise ValueError(f"conv3x3_chain: biases must be a contiguous "

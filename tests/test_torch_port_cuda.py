@@ -36,6 +36,7 @@ from chip_smoke import (  # noqa: E402
     rotated_cases,
     tower_case,
     tower_error,
+    tower_ref_error,
 )
 from mydetection_tpu_torch import Detector, kernels  # noqa: E402
 from mydetection_tpu_torch.kernels.bottleneck import (  # noqa: E402
@@ -60,6 +61,7 @@ from mydetection_tpu_torch.kernels.rotated_nms import (  # noqa: E402
 from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
     conv3x3_chain,
     conv3x3_chain_plain,
+    conv3x3_chain_reference,
 )
 
 THR = 0.45
@@ -384,13 +386,55 @@ def test_tower_kernel_matches_plain(cuda, no_tf32, shape, dtype):
     assert ok, err
 
 
-def test_tower_kernel_takes_one_and_three_layers(cuda, no_tf32):
+@pytest.mark.parametrize("dtype,c", [("float32", 32), ("bfloat16", 64)])
+def test_tower_kernel_takes_one_and_three_layers(cuda, no_tf32, dtype, c):
     """An odd layer count ends in the output slab, not the scratch."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     for layers in (1, 3):
-        args = tower_case(gen, 2, 7, 5, torch.float32, 32, layers=layers)
+        args = tower_case(gen, 2, 7, 5, getattr(torch, dtype), c,
+                          layers=layers)
         err, ok = tower_error(conv3x3_chain(*args), conv3x3_chain_plain(*args))
         assert ok, (layers, err)
+
+
+# bf16 (B, H, W, C) against the kernel-order reference: ragged M (tiles
+# that cross image and row boundaries, a last tile past M) at C = 256
+# and 64, two levels that take the 64 x 128 tile (P6 and P7 at batch
+# 32) and one that takes the 128 x 256 tile in a partial wave (P5)
+TOWER_REF_SHAPES = [(3, 7, 11, 256), (1, 5, 5, 64), (32, 10, 10, 256),
+                    (32, 5, 5, 256), (32, 19, 19, 256)]
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("shape", TOWER_REF_SHAPES)
+def test_tower_bf16_matches_reference(cuda, no_tf32, shape, layers):
+    """chip_smoke's gates against conv3x3_chain_reference (one layer:
+    one ulp + 1e-5 of max, element by element; more: max-scaled) and
+    against the plain version (0.05); two runs bit for bit."""
+    b, h, w, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + layers)
+    args = tower_case(gen, b, h, w, torch.bfloat16, c, layers=layers)
+    got = conv3x3_chain(*args)
+    again = conv3x3_chain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err, ok = tower_ref_error(got, conv3x3_chain_reference(*args), layers)
+    assert ok, err
+    err, ok = tower_error(got, conv3x3_chain_plain(*args))
+    assert ok, err
+
+
+@pytest.mark.parametrize("c", [32, 96])
+def test_tower_bf16_takes_multiples_of_64(cuda, c):
+    """The wgmma kernel's K chunk is 64 channels of one tap: bf16 with
+    another C raises before anything launches."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    args = tower_case(gen, 1, 5, 5, torch.bfloat16, c)
+    before = conv3x3_chain.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        conv3x3_chain(*args)
+    assert conv3x3_chain.launches == before
 
 
 def test_tower_kernel_raises_under_autograd(cuda):

@@ -18,6 +18,7 @@ from mydetection_tpu.ops.pallas.tower_kernel import (  # noqa: E402
 from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
     conv3x3_chain,
     conv3x3_chain_plain,
+    conv3x3_chain_reference,
     pack_weights,
     unpack_weights,
 )
@@ -26,13 +27,14 @@ from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
 B, H, W, C, L = 2, 9, 13, 64, 4
 
 
-def _case(seed=0):
+def _case(seed=0, shape=(B, H, W, C), layers=L):
     """x NHWC with a non-zero mean, HWIO weights 0.1·N(0, 1) (L, 3, 3,
     C, C), biases N(0, 1) (L, C), float32 numpy."""
     rng = np.random.RandomState(seed)
-    x = (rng.randn(B, H, W, C) + 0.5).astype(np.float32)
-    ws = (0.1 * rng.randn(L, 3, 3, C, C)).astype(np.float32)
-    bs = rng.randn(L, C).astype(np.float32)
+    c = shape[-1]
+    x = (rng.randn(*shape) + 0.5).astype(np.float32)
+    ws = (0.1 * rng.randn(layers, 3, 3, c, c)).astype(np.float32)
+    bs = rng.randn(layers, c).astype(np.float32)
     return x, ws, bs
 
 
@@ -63,6 +65,36 @@ def test_plain_chain_matches_pallas_interpret(dtype, gate):
     got = got.float().permute(0, 2, 3, 1).numpy()
     err = _max_scaled(got, np.asarray(ref.astype(jnp.float32)))
     assert err <= gate, err
+
+
+@pytest.mark.parametrize("shape,layers", [((B, H, W, C), L),
+                                          ((1, 5, 7, 64), 1)])
+def test_reference_matches_pallas_interpret_bf16(shape, layers):
+    """The kernel-order reference (float32 conv of the bf16 values, the
+    float32 bias, the ReLU, one rounding a layer) against the Pallas
+    chain in bf16: at most one bf16 ulp apart, element by element (the
+    two sum in other orders: at four layers one element of 14,976 lands
+    one ulp away, at one layer none)."""
+    x, ws, bs = _case(4, shape, layers)
+    ref = conv3x3_chain_pallas_impl(jnp.asarray(x, jnp.bfloat16),
+                                    jnp.asarray(ws), jnp.asarray(bs),
+                                    interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = conv3x3_chain_reference(*_port_args(x, ws, bs, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    big = np.maximum(np.abs(got), np.abs(ref))
+    ulp = np.where(big > 0, 2.0 ** (np.floor(np.log2(np.maximum(big, 1e-30)))
+                                    - 7), 0.0)
+    assert (np.abs(got - ref) <= ulp).all(), np.abs(got - ref).max()
+
+
+def test_reference_is_plain_in_float32():
+    """In float32 the reference and the plain version do the same
+    operations in the same order: bit for bit."""
+    args = _port_args(*_case(5), torch.float32)
+    assert torch.equal(conv3x3_chain_reference(*args),
+                       conv3x3_chain_plain(*args))
 
 
 def test_plain_chain_matches_subnet_layers():
