@@ -5,8 +5,9 @@ on one NVIDIA GPU.
 
 Each argument is an edited copy of
 `mydetection_tpu_torch/kernels/csrc/tower.cu` with the same C interface,
-kept under `build/` (which git ignores). Every source is built with the
-repository's nvcc flags, all at once. Each build, the committed one
+kept under `build/` (which git ignores); it may include the shared
+`csrc/hopper.cuh`. Every source is built with the repository's nvcc
+flags, all at once. Each build, the committed one
 first and last, is held to `chip_smoke.py`'s gates for the bf16 chain
 (0.05 of the plain version, the kernel-order reference at one and four
 layers, two runs bit for bit) at six shapes, then one subnet's five
@@ -99,9 +100,9 @@ def main(paths: list[str]) -> int:
     sources = {"committed": build.CSRC / "tower.cu"}
     sources.update({Path(p).stem: Path(p) for p in paths})
     procs = {name: subprocess.Popen(
-        [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"cmp_{name}.so"),
-         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name, src in sources.items()}
+        [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+         str(out / f"cmp_{name}.so"), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name, src in sources.items()}
     failed = False
     built = []
     for name, proc in procs.items():

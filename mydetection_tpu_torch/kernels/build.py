@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its
 own into `build/kernels/<name>-<hash>.so` at the repository root (a
-directory git ignores); the hash covers the source and the flags, so an
-edited kernel is never served from a stale build. Nothing is built at
+directory git ignores); the hash covers the source, every shared header
+`csrc/*.cuh` and the flags, so an edited kernel or header is never
+served from a stale build. Nothing is built at
 import: the first launch on a CUDA tensor builds what it needs, and
 `build_all()` starts one nvcc per source at once.
 """
@@ -46,6 +47,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
