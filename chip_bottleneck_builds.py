@@ -6,8 +6,8 @@ one on one NVIDIA GPU.
 Each argument is an edited copy of
 `mydetection_tpu_torch/kernels/csrc/bottleneck.cu` with the same C
 interface, kept under `build/` (which git ignores); it may include the
-shared `csrc/hopper.cuh`. Every source is built with the repository's
-nvcc flags, all at once, and its ptxas lines are printed. Each build,
+shared `csrc/hopper.cuh`. Every source is built and loaded by
+`chip_builds.compare_builds`, and its ptxas lines are printed. Each build,
 the committed one first and last, is held to `chip_smoke.py`'s bf16 gate
 (`BOTTLENECK_BF16_GATE` of the plain version, two runs bit for bit) at
 `CHECK_SHAPES` and at the halo case, then the three block shapes of a
@@ -26,12 +26,12 @@ some of its work, timed to see what that work costs); the exit code is
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from chip_builds import compare_builds
 from chip_smoke import (
     BATCH,
     bottleneck_bound_ms,
@@ -112,61 +112,30 @@ def main(paths: list[str]) -> int:
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    from mydetection_tpu_torch.kernels import build
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi_line(), flush=True)
-    out = Path(build.BUILD_DIR)
-    out.mkdir(parents=True, exist_ok=True)
-    sources = {"committed": build.CSRC / "bottleneck.cu"}
-    sources.update({Path(p).stem: Path(p) for p in paths})
-    procs = {name: subprocess.Popen(
-        [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-         str(out / f"cmp_bottleneck_{name}.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, src in sources.items()}
-    failed = False
-    built = []
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        notes = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "wgmma" in ln
-                 or "Function properties" in ln]
-        print(f"build {name}: exit {proc.returncode}; {' | '.join(notes)}",
-              flush=True)
-        if proc.returncode:
-            print(log, flush=True)
-            failed = True
-        else:
-            built.append(name)
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [bottleneck_case(gen, *shape, torch.bfloat16, with_block=True)
              for shape, _ in MAIN_CALLS]
-    order = built + built[:1] if len(built) > 1 and built[0] == "committed" \
-        else built
-    for name in order:
-        build._loaded["bottleneck"] = ctypes.CDLL(
-            str(out / f"cmp_bottleneck_{name}.so"))
-        bad = check()
-        if bad:
-            print(f"{name}: outside its gate at {bad}", flush=True)
-            if not name.startswith("timing_"):
-                failed = True
-                continue
+
+    def report(name, lib, cut):
         rows = time_calls(cases)
-        print(f"{name}: {'timed' if bad else 'within its gate'}; the six "
+        print(f"{name}: {'timed' if cut else 'within its gate'}; the six "
               f"routed calls "
               f"{sum(n * k for _, n, k, _, _ in rows):.4f} ms (cuDNN unfused "
-              f"{sum(n * lib for _, n, _, lib, _ in rows):.4f}, bound "
+              f"{sum(n * lb for _, n, _, lb, _ in rows):.4f}, bound "
               f"{sum(n * bd for _, n, _, _, bd in rows):.4f}); by block "
               f"((B, H, W, c_in, c_out) x count: kernel / cuDNN / bound ms): "
-              + ", ".join(f"{s} x{n} {k:.4f} / {lib:.4f} / {bd:.4f}"
-                          for s, n, k, lib, bd in rows), flush=True)
-        lib = build._loaded["bottleneck"]
+              + ", ".join(f"{s} x{n} {k:.4f} / {lb:.4f} / {bd:.4f}"
+                          for s, n, k, lb, bd in rows), flush=True)
         if hasattr(lib, "bottleneck_phase_cycles"):
             phase_cycles(lib, cases)
-    return 1 if failed else 0
+
+    return compare_builds(
+        "bottleneck", {Path(p).stem: Path(p) for p in paths},
+        ("registers", "spill", "wgmma", "Function properties"),
+        lambda name, lib: check(), report)
 
 
 if __name__ == "__main__":

@@ -11,15 +11,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               within 1 ulp of iou_thres, an all-padding image, mixed
               classes through the float32 class offset);
   4. gn       the CUDA bias+GroupNorm+ReLU against its plain version at
-              the five FCOS@608 level shapes at B=32 and a ragged 5x7
-              at B=3, float32 and bf16, channels_last, inputs with a
-              non-zero mean;
+              the five FCOS@608 level shapes at B=32, a ragged 5x7 at
+              B=3 and a 19x19 image its cluster does not split evenly
+              (GN_EDGE_SHAPES), float32 and bf16, channels_last, inputs
+              with a non-zero mean; two runs bit for bit;
   5. gn_train the forward-with-statistics kernel (y, mean, inv) and the
               fused backward kernel (dx, dbias, dscale, dshift) against
               their plain versions at the five FCOS@608 level shapes at
-              B=16 and the ragged 5x7 at B=3, float32 and bf16, with a
-              live ReLU mask and once with an NCHW dy; the backward
-              twice, bit for bit;
+              B=16, the ragged 5x7 at B=3 and GN_EDGE_SHAPES, float32
+              and bf16, with a live ReLU mask and once with an NCHW dy;
+              each kernel twice, bit for bit;
   6. rotated  the CUDA rotated-NMS suppress kernel bit-equal to its plain
               version on B=32, K=512 IoU matrices (rotated person boxes
               with jittered duplicates, entries at iou_thres and one ulp
@@ -105,6 +106,9 @@ FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 GN_GROUPS = 32
 GN_F32_GATE = 1e-5          # max |kernel - plain| in float32
 GN_NEAR_ZERO = 1e-5         # bf16: one ulp of the output, plus this
+# (B, H, W) beside the FCOS levels: an image its cluster does not split
+# evenly (kernels/gn.py::gn_plan)
+GN_EDGE_SHAPES = [(1, 19, 19)]
 # backward: xhat 3, the mask 1, dxhat 1, the two group sums 3, dx 4, the
 # three channel sums 4 (counting each element's work once)
 OPS_PER_GN_BWD_ELEMENT = 16
@@ -539,25 +543,29 @@ def phase_gn() -> None:
     from mydetection_tpu_torch.models.fcos import level_shapes
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(BATCH, h, w) for h, w in level_shapes(608)] + [(3, 5, 7)]
+    shapes = ([(BATCH, h, w) for h, w in level_shapes(608)] + [(3, 5, 7)]
+              + GN_EDGE_SHAPES)
     report = []
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
         for b, h, w in shapes:
             args = gn_case(gen, b, h, w, dtype)
             got = bias_gn_relu(*args, groups=GN_GROUPS)
+            again = bias_gn_relu(*args, groups=GN_GROUPS)
             ref = bias_gn_relu_plain(*args, groups=GN_GROUPS)
             torch.cuda.synchronize()
             err, ok = gn_error(got, ref)
             if not ok or not got.is_contiguous(
-                    memory_format=torch.channels_last):
+                    memory_format=torch.channels_last) \
+                    or not torch.equal(got, again):
                 raise AssertionError(f"bias_gn_relu {dtype} at {(b, h, w)}: "
-                                     f"max |d| {err:.3g} outside its gate, or "
-                                     f"the output left channels_last")
+                                     f"max |d| {err:.3g} outside its gate, "
+                                     f"the output left channels_last, or two "
+                                     f"runs differ")
             worst = max(worst, err)
         report.append(f"{str(dtype)[6:]} max |d| {worst:.3g}")
-    print(f"gn: bias_gn_relu within its gates of plain at "
-          f"{[s for s in shapes]} x 256 ch, {GN_GROUPS} groups "
+    print(f"gn: bias_gn_relu within its gates of plain and bit-reproducible "
+          f"at {[s for s in shapes]} x 256 ch, {GN_GROUPS} groups "
           f"(f32 gate {GN_F32_GATE}, bf16 gate 1 ulp + {GN_NEAR_ZERO}): "
           f"{', '.join(report)}", flush=True)
 
@@ -598,8 +606,8 @@ def gn_train_case(gen, b: int, h: int, w: int, dtype, channels_last_dy=True):
 
 
 def check_gn_train_case(fwd_args, bwd_args) -> tuple[float, float]:
-    """#4 and #5 against their plain versions on one case, and #5 twice
-    bit for bit; returns the worst (forward, backward) error."""
+    """#4 and #5 against their plain versions on one case, and each
+    twice bit for bit; returns the worst (forward, backward) error."""
     from mydetection_tpu_torch.kernels.gn import (
         bias_gn_relu_bwd,
         bias_gn_relu_bwd_plain,
@@ -609,16 +617,18 @@ def check_gn_train_case(fwd_args, bwd_args) -> tuple[float, float]:
 
     shape = tuple(fwd_args[0].shape)
     got = bias_gn_relu_fwd_stats(*fwd_args, groups=GN_GROUPS)
+    again = bias_gn_relu_fwd_stats(*fwd_args, groups=GN_GROUPS)
     ref = bias_gn_relu_fwd_stats_plain(*fwd_args, groups=GN_GROUPS)
     torch.cuda.synchronize()
     y_err, y_ok = gn_error(got[0], ref[0])
     errs = [max_scaled(a, b) for a, b in zip(got[1:], ref[1:])]
     if not y_ok or max(errs) > GN_F32_GATE or not got[0].is_contiguous(
-            memory_format=torch.channels_last):
+            memory_format=torch.channels_last) \
+            or not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"bias_gn_relu_fwd_stats {got[0].dtype} at "
                              f"{shape}: y max |d| {y_err:.3g}, mean/inv "
-                             f"max-scaled {errs} outside their gates, or y "
-                             f"left channels_last")
+                             f"max-scaled {errs} outside their gates, y "
+                             f"left channels_last, or two runs differ")
     fwd = max([y_err] + errs)
     got = bias_gn_relu_bwd(*bwd_args, groups=GN_GROUPS)
     again = bias_gn_relu_bwd(*bwd_args, groups=GN_GROUPS)
@@ -644,7 +654,8 @@ def phase_gn_train() -> None:
     from mydetection_tpu_torch.models.fcos import level_shapes
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(TRAIN_BATCH, h, w) for h, w in level_shapes(608)] + [(3, 5, 7)]
+    shapes = ([(TRAIN_BATCH, h, w) for h, w in level_shapes(608)]
+              + [(3, 5, 7)] + GN_EDGE_SHAPES)
     report = []
     for dtype in (torch.float32, torch.bfloat16):
         worst = [0.0, 0.0]
@@ -658,7 +669,7 @@ def phase_gn_train() -> None:
     print(f"gn_train: bias_gn_relu_fwd_stats (y, mean, inv) and "
           f"bias_gn_relu_bwd (dx, dbias, dscale, dshift) within their gates "
           f"of plain at {shapes} x 256 ch, {GN_GROUPS} groups, live ReLU "
-          f"masks, one NCHW dy per dtype; bwd bit-reproducible over two "
+          f"masks, one NCHW dy per dtype; both bit-reproducible over two "
           f"runs: {', '.join(report)}", flush=True)
 
 
@@ -1417,9 +1428,44 @@ def nms_row(captured: dict) -> dict:
     }
 
 
+def gn_levels(calls, kind: str, run, bound, library) -> list[dict]:
+    """For each distinct input shape of `calls`, in order (an FCOS
+    level): how many calls, one call's kernel ms (`run(args)`), bound ms
+    (`bound(args)`) and library ms (`library(i)` for the shape's first
+    call i), and the plan's cluster, whether the range stays on chip,
+    and how many clusters the card holds at once."""
+    from mydetection_tpu_torch.kernels.gn import max_active_clusters, plan_for
+
+    first = {}
+    for i, args in enumerate(calls):
+        first.setdefault(tuple(args[0].shape), []).append(i)
+    levels = []
+    for shape, idx in first.items():
+        args = calls[idx[0]]
+        plan = plan_for(kind, args[0], GN_GROUPS)
+        levels.append({
+            "shape": list(shape), "calls": len(idx),
+            "ms": cuda_ms(lambda: run(args), 20), "bound_ms": bound(args),
+            "library_ms": cuda_ms(lambda: library(idx[0]), 20),
+            "cluster": plan.cluster, "resident": plan.resident,
+            "clusters_resident": max_active_clusters(kind, args[0],
+                                                     GN_GROUPS)})
+    return levels
+
+
+def level_text(levels: list[dict]) -> str:
+    return ", ".join(f"{lv['shape'][2]}x{lv['shape'][3]} x{lv['calls']}: "
+                     f"{lv['ms']:.4f} / {lv['bound_ms']:.4f} / "
+                     f"{lv['library_ms']:.4f} (cluster {lv['cluster']}, "
+                     f"{lv['clusters_resident']} at once"
+                     f"{'' if lv['resident'] else ', streaming'})"
+                     for lv in levels)
+
+
 def gn_row(captured: dict) -> dict:
     """The GN kernel at the main path's own inputs: the 40 calls of one
-    FCOS forward, summed, and the first P3 call alone."""
+    FCOS forward, summed, the first P3 call alone, and one call a level
+    (`levels`)."""
     import torch.nn.functional as F
 
     from mydetection_tpu_torch.kernels.gn import bias_gn_relu, bias_gn_relu_plain
@@ -1445,11 +1491,16 @@ def gn_row(captured: dict) -> dict:
     p3_ms = cuda_ms(lambda: bias_gn_relu(*p3, groups=GN_GROUPS))
     p3_bound, _ = gn_bound_ms([p3])
     bound, bound_by = gn_bound_ms(calls)
+    levels = gn_levels(
+        calls, "fwd", lambda a: bias_gn_relu(*a, groups=GN_GROUPS),
+        lambda a: gn_bound_ms([a])[0],
+        lambda i: F.group_norm(lib_in[i][0], GN_GROUPS, *lib_in[i][1:], 1e-5))
     print(f"gn on the fcos main path: {len(calls)} calls, kernel {ms:.4f} ms "
           f"summed (bound {bound:.4f} ms by {bound_by}), plain {plain_ms:.3f} "
           f"ms, F.group_norm {lib_ms:.4f} ms; the P3 call "
           f"{tuple(p3[0].shape)} alone {p3_ms:.4f} ms (bound "
-          f"{p3_bound:.4f} ms)", flush=True)
+          f"{p3_bound:.4f} ms); one call a level (kernel / bound / "
+          f"F.group_norm ms): {level_text(levels)}", flush=True)
     return {
         "name": "bias_gn_relu", "route": "cuda",
         "source": "mydetection_tpu_torch/kernels/csrc/gn.cu",
@@ -1457,10 +1508,10 @@ def gn_row(captured: dict) -> dict:
         "launches": captured["launches"]["bias_gn_relu"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib_ms,
-        "p3_ms": p3_ms, "p3_bound_ms": p3_bound,
-        "note": "times sum the 40 calls of one forward; library_ms is "
-                "F.group_norm on x + bias, which leaves out the bias add "
-                "and the ReLU",
+        "p3_ms": p3_ms, "p3_bound_ms": p3_bound, "levels": levels,
+        "note": "times sum the 40 calls of one forward; levels time one "
+                "call of each level; library_ms is F.group_norm on "
+                "x + bias, which leaves out the bias add and the ReLU",
     }
 
 
@@ -1877,9 +1928,12 @@ def gn_bwd_row(captured: dict) -> dict:
 
     calls = captured["bwd"]
     err = 0.0
-    layouts = set()
+    layouts = {"channels_last": 0, "nchw": 0, "other": 0}
     for args in calls:
-        layouts.add(args[2].is_contiguous(memory_format=torch.channels_last))
+        dy = args[2]
+        layouts["channels_last" if dy.is_contiguous(
+            memory_format=torch.channels_last) else
+            "nchw" if dy.is_contiguous() else "other"] += 1
         got = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
         again = bias_gn_relu_bwd(*args, groups=GN_GROUPS)
         ref = bias_gn_relu_bwd_plain(*args, groups=GN_GROUPS)
@@ -1911,11 +1965,21 @@ def gn_bwd_row(captured: dict) -> dict:
         dy, xb, mean, rstd, wt, b, c, hw, GN_GROUPS, [True, True, True])
         for dy, xb, mean, rstd, wt, b, c, hw in lib], 5)
     bound, bound_by = gn_bound_ms(calls, backward=True)
-    print(f"gn bwd on the train main path: {len(calls)} calls (dy "
-          f"channels_last: {sorted(layouts)}), kernel {ms:.4f} ms summed "
+
+    def aten(i):
+        dy, xb, mean, rstd, wt, b, c, hw = lib[i]
+        return torch.ops.aten.native_group_norm_backward(
+            dy, xb, mean, rstd, wt, b, c, hw, GN_GROUPS, [True, True, True])
+
+    levels = gn_levels(
+        calls, "bwd", lambda a: bias_gn_relu_bwd(*a, groups=GN_GROUPS),
+        lambda a: gn_bound_ms([a], backward=True)[0], aten)
+    print(f"gn bwd on the train main path: {len(calls)} calls (dy layouts "
+          f"{layouts}), kernel {ms:.4f} ms summed "
           f"(bound {bound:.4f} ms by {bound_by}), plain {plain_ms:.3f} ms, "
           f"aten native_group_norm_backward {lib_ms:.4f} ms; bit-reproducible, "
-          f"max-scaled |d| {err:.3g}", flush=True)
+          f"max-scaled |d| {err:.3g}; one call a level (kernel / bound / "
+          f"aten ms): {level_text(levels)}", flush=True)
     return {
         "name": "bias_gn_relu_bwd", "route": "cuda",
         "source": "mydetection_tpu_torch/kernels/csrc/gn.cu",
@@ -1923,11 +1987,15 @@ def gn_bwd_row(captured: dict) -> dict:
         "launches": captured["launches"]["bias_gn_relu_bwd"],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        "levels": levels, "dy_layouts": layouts,
         "note": "times sum the 40 calls of one fcos-608 batch-16 bf16 train "
-                "step; max_abs_err is max-scaled over dx, dbias, dscale, "
-                "dshift; the two-pass design reads x, y and dy twice, the "
-                "bound once; library_ms is aten.native_group_norm_backward "
-                "on contiguous x + bias, which leaves out the ReLU mask and "
+                "step, each call's two launches (the kernel and the sum of "
+                "its channel partials) and any copy of an NCHW dy; levels "
+                "time one call of each level; max_abs_err is max-scaled "
+                "over dx, dbias, dscale, dshift; the resident design reads "
+                "x, y and dy once and x again, the bound each once; "
+                "library_ms is aten.native_group_norm_backward on "
+                "contiguous x + bias, which leaves out the ReLU mask and "
                 "the bias gradient",
     }
 

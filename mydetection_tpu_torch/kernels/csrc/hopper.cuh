@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (tower.cu, bottleneck.cu): mbarriers, TMA loads and stores, wgmma
-// shared-memory descriptors and products, and the TMA descriptor encoder,
-// looked up in libcuda at run time so that nothing links -lcuda.
+// Hopper (sm_90a) building blocks shared by the port's kernels (tower.cu,
+// bottleneck.cu, gn.cu): mbarriers, TMA and plain bulk loads and stores,
+// the cluster barrier and distributed shared memory, wgmma shared-memory
+// descriptors and products, and the TMA descriptor encoder, looked up in
+// libcuda at run time so that nothing links -lcuda.
 //
 // Layouts. Every operand tile in shared memory is in the 128-byte swizzle
 // that TMA writes and wgmma reads: 16-byte column c of 128-byte row r lies
@@ -106,6 +107,67 @@ __device__ __forceinline__ void bulk_wait() {
   } else {
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// waits until at most N of the thread's committed bulk groups still read
+// their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_reads() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at src, 16-byte aligned,
+// into this block's shared memory at dst; completes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at src into
+// global memory at dst, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// orders this thread's shared-memory writes before later bulk copies
+// that read them (then a block barrier, then the copy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the cluster barrier, in two halves: every thread of every block of the
+// cluster arrives (its shared-memory writes released), and waits for
+// all of them (acquiring theirs)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// the float at `p`'s offset in the shared memory of the cluster's block
+// `rank` (distributed shared memory)
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // a wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes

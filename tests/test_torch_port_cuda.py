@@ -11,12 +11,15 @@ file imports no JAX, so it runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py sets up JAX for the other files.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
+    GN_EDGE_SHAPES,
     GN_GROUPS,
     bottleneck_case,
     bottleneck_error,
@@ -27,6 +30,7 @@ from chip_smoke import (  # noqa: E402
     gn_case,
     gn_error,
     gn_train_case,
+    gn_train_error,
     golden_image,
     gather_cases,
     nms_cases,
@@ -43,9 +47,11 @@ from mydetection_tpu_torch.kernels.bottleneck import (  # noqa: E402
     fused_bottleneck,
     fused_bottleneck_plain,
 )
+from mydetection_tpu_torch.kernels import gn  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu,
     bias_gn_relu_bwd,
+    bias_gn_relu_bwd_plain,
     bias_gn_relu_fwd_stats,
     bias_gn_relu_plain,
 )
@@ -151,9 +157,11 @@ def test_rotated_kernel_rejects_bad_inputs(cuda):
     assert nms_from_iou_keep.launches == before
 
 
-# (B, H, W): the five FCOS@608 levels at batch 8, and a ragged one
+# (B, H, W): the five FCOS@608 levels at batch 8, a ragged one, a P3
+# image at batch 1 and 32, and chip_smoke's GN_EDGE_SHAPES: a 19x19
+# image its cluster does not split evenly
 GN_SHAPES = [(8, 76, 76), (8, 38, 38), (8, 19, 19), (8, 10, 10), (8, 5, 5),
-             (3, 5, 7)]
+             (3, 5, 7), (1, 76, 76), (32, 76, 76), *GN_EDGE_SHAPES]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -173,13 +181,60 @@ def test_gn_kernel_matches_plain(cuda, shape, dtype):
     assert ok, err
 
 
-def test_gn_kernel_takes_small_groups(cuda):
-    """64 channels in 32 groups: 2 channels a group, the scalar path."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_kernel_takes_small_groups(cuda, dtype):
+    """64 channels in 32 groups: 2 channels a group, fewer than a
+    thread's 16-byte vector holds; the forward, the forward with
+    statistics and the backward."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    args = gn_case(gen, 3, 5, 7, torch.float32, c=64)
+    args = gn_case(gen, 3, 5, 7, getattr(torch, dtype), c=64)
     err, ok = gn_error(bias_gn_relu(*args, groups=32),
                        bias_gn_relu_plain(*args, groups=32))
     assert ok, err
+    x, bias, scale, shift = args
+    y, mean, inv = bias_gn_relu_fwd_stats(x, bias, scale, shift, groups=32)
+    dy = torch.randn(x.shape, device=cuda, generator=gen).to(x.dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    got = bias_gn_relu_bwd(x, y, dy, bias, scale, mean, inv, groups=32)
+    ref = bias_gn_relu_bwd_plain(x, y, dy, bias, scale, mean, inv, groups=32)
+    for a, b in zip(got, ref):
+        err, ok = gn_train_error(a, b)
+        assert ok, err
+
+
+def test_gn_fwd_is_bit_reproducible(cuda):
+    """Every block adds the cluster's partials in rank order: five runs
+    of the forward and of its statistics variant at the P3 shape give
+    one set of bits."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    args = gn_case(gen, 8, 76, 76, torch.bfloat16)
+    first = bias_gn_relu(*args, groups=GN_GROUPS)
+    stats = bias_gn_relu_fwd_stats(*args, groups=GN_GROUPS)
+    for _ in range(4):
+        assert torch.equal(first, bias_gn_relu(*args, groups=GN_GROUPS))
+        again = bias_gn_relu_fwd_stats(*args, groups=GN_GROUPS)
+        assert all(torch.equal(u, v) for u, v in zip(stats, again))
+
+
+def test_gn_refuses_what_cannot_launch(cuda):
+    """A pixel row wider than the kernels take is refused by the plan,
+    and a plan the kernel's layout disagrees with (or a cluster above
+    16) by the launcher: each raises and counts no launch."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x, bias, scale, shift = gn_case(gen, 2, 4, 4, torch.bfloat16, c=4096)
+    before = (bias_gn_relu.launches, bias_gn_relu_fwd_stats.launches)
+    with pytest.raises(ValueError, match="pixel row"):
+        bias_gn_relu(x, bias, scale, shift, groups=GN_GROUPS)
+    with pytest.raises(ValueError, match="pixel row"):
+        bias_gn_relu_fwd_stats(x, bias, scale, shift, groups=GN_GROUPS)
+    x, bias, scale, shift = gn_case(gen, 2, 38, 38, torch.bfloat16)
+    out = torch.empty_like(x)
+    plan = gn.plan_for("fwd", x, GN_GROUPS)
+    for bad in (dataclasses.replace(plan, smem=plan.smem + 128),
+                dataclasses.replace(plan, cluster=17, blocks=2 * 17)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            gn._launch_fwd(x, bias, scale, shift, out, None, GN_GROUPS, bad)
+    assert (bias_gn_relu.launches, bias_gn_relu_fwd_stats.launches) == before
 
 
 def test_gn_kernel_rejects_bad_inputs(cuda):
@@ -255,14 +310,14 @@ def test_cuda_rapid_detector_matches_cpu(cuda):
 def test_gn_train_kernels_match_plain(cuda, shape, dtype):
     """The forward-with-statistics kernel (y, mean, inv) and the fused
     backward (dx, dbias, dscale, dshift) within chip_smoke's gates of
-    their plain versions, with a live ReLU mask; the backward twice, bit
-    for bit. One launch each."""
+    their plain versions, with a live ReLU mask; each twice, bit for
+    bit. One launch a call."""
     gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 7)
     fwd_args, bwd_args = gn_train_case(gen, *shape, getattr(torch, dtype))
     before = (bias_gn_relu_fwd_stats.launches, bias_gn_relu_bwd.launches)
     check_gn_train_case(fwd_args, bwd_args)
     assert (bias_gn_relu_fwd_stats.launches, bias_gn_relu_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -4,8 +4,12 @@
 runs) against the TPU kernel `bias_gn_relu_pallas_impl` in interpret
 mode, and against the unfused oracle `fcos.group_norm` + bias + ReLU.
 Same numpy inputs (seeded) through both, NHWC on the JAX side and NCHW
-on the port's. The CUDA kernel's legs are in test_torch_port_cuda.py.
+on the port's; and the CUDA kernels' launch plan (`gn_plan`), a pure
+function of the shape. The CUDA kernel's legs are in
+test_torch_port_cuda.py.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from mydetection_tpu.models import fcos as jfcos  # noqa: E402
 from mydetection_tpu.ops.pallas.gn_kernel import (  # noqa: E402
     bias_gn_relu_pallas_impl,
 )
+from mydetection_tpu_torch.kernels import gn as tgn  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu,
     bias_gn_relu_plain,
@@ -144,3 +149,90 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert bias_gn_relu.launches == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bias_gn_relu(x.to("meta"), bias, scale, shift)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' launch plan (kernels/gn.py::gn_plan), a pure function
+# ---------------------------------------------------------------------------
+
+def _levels(size):
+    return [(math.ceil(size / s),) * 2 for s in (8, 16, 32, 64, 128)]
+
+
+PLAN_CASES = [(size, lv, b, elem)
+              for size in (608, 1024) for lv in range(5) for b in (1, 16, 32)
+              for elem in (2, 4)]
+
+
+def _check_plan(kind, b, hw, c, elem, groups=32):
+    """What csrc/gn.cu's launcher assumes of a plan, and that its
+    blocks' ranges cover every pixel of every image exactly once."""
+    plan = tgn.gn_plan(kind, b, hw, c, groups, elem)
+    row = c * elem
+    assert 1 <= plan.cluster <= tgn.MAX_CLUSTER and plan.cluster <= hw
+    assert plan.blocks == b * plan.cluster
+    most = -(-hw // plan.cluster)
+    if plan.resident:
+        assert plan.tile >= most
+        if kind == "fwd":
+            assert plan.stages == 0
+            assert plan.slots >= -(-most // plan.chunk)
+        else:
+            assert plan.stages >= 2 and plan.chunk2 <= 3 * plan.chunk
+    else:
+        assert plan.stages >= 2
+        assert plan.chunk2 == plan.chunk and plan.slots >= plan.stages
+    smem = tgn._smem_bytes(kind, c, elem, groups, resident=plan.resident,
+                           tile=plan.tile, stages=plan.stages,
+                           chunk=plan.chunk, slots=plan.slots)
+    # the block's tile (or ring) plus everything else fits 227 KB
+    assert plan.smem == smem <= tgn.SMEM_LIMIT
+    assert (plan.tile if plan.resident else plan.stages * plan.chunk) * row \
+        < plan.smem
+    seen = np.zeros((b, hw), np.int64)
+    for img, lo, n in tgn.gn_ranges(plan, hw):
+        assert n >= 1 and n <= most
+        seen[img, lo:lo + n] += 1
+    assert (seen == 1).all()
+    return plan
+
+
+@pytest.mark.parametrize("size,level,b,elem", PLAN_CASES)
+def test_gn_plan_fits_and_covers(size, level, b, elem):
+    """Every FCOS level at 608 and 1024, batch 1, 16 and 32, bf16 and
+    f32: both kernels' plans fit shared memory, take clusters of at most
+    16 that divide the grid, and cover every pixel exactly once; bf16 at
+    608 holds each block's range on chip (the forward and the
+    backward's dpre), and f32 P3 at 608 (5.9 MB an image) streams."""
+    h, w = _levels(size)[level]
+    fwd = _check_plan("fwd", b, h * w, 256, elem)
+    bwd = _check_plan("bwd", b, h * w, 256, elem)
+    if size == 608 and elem == 2:
+        assert fwd.resident and bwd.resident
+    if size == 608 and level == 0 and elem == 4:
+        assert not fwd.resident and not bwd.resident
+
+
+@pytest.mark.parametrize("b,h,w,c,elem", [(3, 5, 7, 256, 2), (3, 5, 7, 256, 4),
+                                          (3, 5, 7, 64, 2), (3, 5, 7, 64, 4),
+                                          (1, 128, 128, 256, 2),
+                                          (1, 19, 19, 256, 2)])
+def test_gn_plan_edge_shapes(b, h, w, c, elem):
+    """The ragged 5x7, C = 64 (2 channels a group at 32 groups), P3 at
+    1024 in bf16 (8.4 MB an image, which no cluster of 16 holds: both
+    kernels stream it) and a 19x19 image its cluster does not split
+    evenly."""
+    fwd = _check_plan("fwd", b, h * w, c, elem)
+    bwd = _check_plan("bwd", b, h * w, c, elem)
+    if h == 128:
+        assert not fwd.resident and not bwd.resident
+        assert fwd.cluster == bwd.cluster == tgn.MAX_CLUSTER
+    if (b, h) == (1, 19):
+        assert fwd.cluster > 1 and (h * w) % fwd.cluster
+
+
+@pytest.mark.parametrize("c,elem", [(4096, 2), (7, 4), (12, 2)])
+def test_gn_plan_refuses_rows_the_kernels_do_not_take(c, elem):
+    """A pixel row must be 16 to 4096 bytes in 16-byte steps."""
+    with pytest.raises(ValueError, match="pixel row"):
+        tgn.gn_plan("fwd", 2, 16, c, 1, elem)
