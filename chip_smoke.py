@@ -9,7 +9,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
   3. kernel   the CUDA NMS keep-mask bit-equal to its plain version on
               B=32, K=1024 hard cases (duplicates, tied scores, pairs
               within 1 ulp of iou_thres, an all-padding image, mixed
-              classes through the float32 class offset);
+              classes through the float32 class offset), and on such
+              cases at K=2048 (B=32) and at OLD_LARGEST_NMS_K (B=6),
+              where the bitmask goes through a global scratch;
   4. gn       the CUDA bias+GroupNorm+ReLU against its plain version at
               the five FCOS@608 level shapes at B=32, a ragged 5x7 at
               B=3 and a 19x19 image its cluster does not split evenly
@@ -25,7 +27,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               version on B=32, K=512 IoU matrices (rotated person boxes
               with jittered duplicates, entries at iou_thres and one ulp
               around it, a deliberately asymmetric matrix, an
-              all-padding image, fewer valid rows than 64);
+              all-padding image, fewer valid rows than 64), and on such
+              matrices at K=2048 (banded) and OLD_LARGEST_ROTATED_K
+              (B=12);
   7. tower    the CUDA conv chain (L = 4 x [3x3 conv + bias + ReLU])
               against its plain version at the five RetinaNet@608 level
               shapes at B=32, C=256, and a ragged 9x13 at B=2, C=64,
@@ -91,6 +95,10 @@ IOU_THRES = 0.45
 BATCH = 32
 PRE_NMS = 1024
 ROT_PRE_NMS = 512   # rapid's registered pre_nms
+# the largest K the one-block-an-image NMS kernels took (21 bytes a box in
+# shared memory; a K x ceil(K/32) word mask), which their cluster
+# redesign must still take
+OLD_LARGEST_NMS_K, OLD_LARGEST_ROTATED_K = 10971, 1348
 OPS_PER_IOU = 12    # min/max x4, sub x2, clamp x2, mul, add, sub, div
 # one Liang-Barsky rotated IoU, counted from ops/rotated.py: midpoint and
 # shifts 8, pair-dependent corners 32, two edge-clip passes of ~430 each
@@ -272,7 +280,7 @@ def nms_cases(rng, b: int, k: int, thr: float = IOU_THRES):
             boxes[i] = np.repeat(base, 8, axis=0)[:k]
             valid[i] = True
         elif kind == 3:
-            pairs = near_threshold_pairs(rng, k // 2, thr,
+            pairs = near_threshold_pairs(rng, -(-k // 2), thr,
                                          rng.randint(0, 80, 64))
             boxes[i] = pairs.reshape(-1, 4)[:k]
             valid[i] = True
@@ -314,7 +322,9 @@ def rotated_cases(rng, b: int, k: int, thr: float = IOU_THRES,
 
     boxes = torch.from_numpy(np.stack([person_boxes(rng, k)
                                        for _ in range(b)])).to(device)
-    iou = pairwise_rotated_iou(boxes, boxes).contiguous()
+    # an image at a time: the eager IoU holds ~830 bytes a pair at its peak
+    iou = torch.cat([pairwise_rotated_iou(x[None], x[None])
+                     for x in boxes]).contiguous()
     valid = np.ones((b, k), bool)
     thr32 = np.float32(thr)
     near = np.array([np.nextafter(thr32, np.float32(-1)), thr32,
@@ -418,6 +428,15 @@ def nms_bound_ms(boxes: torch.Tensor, valid: torch.Tensor,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def nms_dense_ms(valid: torch.Tensor) -> float:
+    """Every upper-triangle IoU of the valid rows (and their areas) over
+    the fp32 rate, in ms: what a kernel that does not skip pairs greedy
+    never consults would compute."""
+    n = valid.long().sum(dim=1)
+    ops = int((n * (n - 1) // 2).sum()) * OPS_PER_IOU + 3 * int(n.sum())
+    return ops / FP32_OPS_PER_S * 1e3
+
+
 def rotated_nms_bound_ms(iou: torch.Tensor, valid: torch.Tensor,
                          keep: torch.Tensor) -> tuple[float, str, float]:
     """Least time for the suppress of these inputs: the IoU entries
@@ -505,26 +524,41 @@ def smi_line(fields: str = "name,power.limit") -> str:
 # ---------------------------------------------------------------------------
 
 def phase_kernel(rng) -> None:
-    from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain
+    from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain, plan_for
 
-    boxes_np, valid_np = nms_cases(rng, BATCH, PRE_NMS)
-    boxes = torch.from_numpy(boxes_np).cuda()
-    valid = torch.from_numpy(valid_np).cuda()
-    keep = nms_keep(boxes, valid, IOU_THRES)
-    plain = nms_keep_plain(boxes, valid, IOU_THRES)
-    torch.cuda.synchronize()
-    diff = int((keep != plain).sum())
-    if diff:
-        bad = sorted({int(i) for i in (keep != plain).nonzero()[:, 0]})
-        raise AssertionError(f"kernel keep-mask differs from the plain "
-                             f"version in {diff} entries (images {bad})")
-    if keep[4].any() or not keep.any():
-        raise AssertionError("all-padding image kept a box, or none kept")
-    print(f"kernel: nms_keep bit-equal to plain on B={BATCH} K={PRE_NMS} "
-          f"hard cases ({int(keep.sum())} kept of {int(valid.sum())} valid); "
-          f"kernel {cuda_ms(lambda: nms_keep(boxes, valid, IOU_THRES)):.4f} ms, "
-          f"plain {cuda_ms(lambda: nms_keep_plain(boxes, valid, IOU_THRES), 3):.3f} ms",
-          flush=True)
+    for b, k in ((BATCH, PRE_NMS), (BATCH, 2048), (6, OLD_LARGEST_NMS_K)):
+        boxes_np, valid_np = nms_cases(rng, b, k)
+        boxes = torch.from_numpy(boxes_np).cuda()
+        valid = torch.from_numpy(valid_np).cuda()
+        keep = nms_keep(boxes, valid, IOU_THRES)
+        plain = nms_keep_plain(boxes, valid, IOU_THRES)
+        torch.cuda.synchronize()
+        diff = int((keep != plain).sum())
+        if diff:
+            bad = sorted({int(i) for i in (keep != plain).nonzero()[:, 0]})
+            raise AssertionError(f"kernel keep-mask differs from the plain "
+                                 f"version in {diff} entries at B={b} K={k} "
+                                 f"(images {bad})")
+        if keep[4].any() or not keep.any():
+            raise AssertionError("all-padding image kept a box, or none kept")
+        print(f"kernel: nms_keep bit-equal to plain on B={b} K={k} hard "
+              f"cases ({int(keep.sum())} kept of {int(valid.sum())} valid; "
+              f"{plan_text(plan_for(valid))}); kernel "
+              f"{cuda_ms(lambda: nms_keep(boxes, valid, IOU_THRES)):.4f} ms, "
+              f"plain {cuda_ms(lambda: nms_keep_plain(boxes, valid, IOU_THRES), 1):.3f} ms",
+              flush=True)
+
+
+def plan_text(plan) -> str:
+    """A greedy-NMS launch plan (`kernels.nms.NMSPlan`) in words."""
+    where = ("on chip" if plan.on_chip
+             else f"banded, {plan.stages} ring stages")
+    return f"cluster {plan.cluster}, {plan.rows} rows a block, {where}"
+
+
+def plan_dict(plan) -> dict:
+    return {"cluster": plan.cluster, "rows_a_block": plan.rows,
+            "on_chip": plan.on_chip, "stages": plan.stages}
 
 
 def gn_case(gen, b: int, h: int, w: int, dtype, c: int = 256):
@@ -775,28 +809,33 @@ def phase_train_parity() -> None:
 
 
 def phase_rotated(rng) -> None:
+    from mydetection_tpu_torch.kernels.nms import plan_for
     from mydetection_tpu_torch.kernels.rotated_nms import (
         nms_from_iou_keep,
         nms_from_iou_keep_plain,
     )
 
-    iou, valid = rotated_cases(rng, BATCH, ROT_PRE_NMS, device="cuda")
-    keep = nms_from_iou_keep(iou, valid, IOU_THRES)
-    plain = nms_from_iou_keep_plain(iou, valid, IOU_THRES)
-    torch.cuda.synchronize()
-    diff = int((keep != plain).sum())
-    if diff:
-        bad = sorted({int(i) for i in (keep != plain).nonzero()[:, 0]})
-        raise AssertionError(f"suppress kernel keep-mask differs from the "
-                             f"plain version in {diff} entries (images {bad})")
-    if keep[4].any() or (keep & ~valid).any() or not keep.any():
-        raise AssertionError("a padding row was kept, or none kept")
-    print(f"rotated: nms_from_iou_keep bit-equal to plain on B={BATCH} "
-          f"K={ROT_PRE_NMS} hard cases ({int(keep.sum())} kept of "
-          f"{int(valid.sum())} valid); kernel "
-          f"{cuda_ms(lambda: nms_from_iou_keep(iou, valid, IOU_THRES)):.4f} ms, "
-          f"plain {cuda_ms(lambda: nms_from_iou_keep_plain(iou, valid, IOU_THRES), 3):.3f} ms",
-          flush=True)
+    for b, k in ((BATCH, ROT_PRE_NMS), (12, 2048), (12, OLD_LARGEST_ROTATED_K)):
+        iou, valid = rotated_cases(rng, b, k, device="cuda")
+        keep = nms_from_iou_keep(iou, valid, IOU_THRES)
+        plain = nms_from_iou_keep_plain(iou, valid, IOU_THRES)
+        torch.cuda.synchronize()
+        diff = int((keep != plain).sum())
+        if diff:
+            bad = sorted({int(i) for i in (keep != plain).nonzero()[:, 0]})
+            raise AssertionError(f"suppress kernel keep-mask differs from the "
+                                 f"plain version in {diff} entries at B={b} "
+                                 f"K={k} (images {bad})")
+        if keep[4].any() or (keep & ~valid).any() or not keep.any():
+            raise AssertionError("a padding row was kept, or none kept")
+        print(f"rotated: nms_from_iou_keep bit-equal to plain on B={b} "
+              f"K={k} hard cases ({int(keep.sum())} kept of "
+              f"{int(valid.sum())} valid; "
+              f"{plan_text(plan_for(valid, box_floats=0))}); kernel "
+              f"{cuda_ms(lambda: nms_from_iou_keep(iou, valid, IOU_THRES)):.4f} ms, "
+              f"plain {cuda_ms(lambda: nms_from_iou_keep_plain(iou, valid, IOU_THRES), 1):.3f} ms",
+              flush=True)
+        del iou
 
 
 def tower_case(gen, b: int, h: int, w: int, dtype, c: int = 256,
@@ -1406,8 +1445,10 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
     return captured
 
 
-def nms_row(captured: dict) -> dict:
-    from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain
+def nms_row(captured: dict, path: str) -> dict:
+    """The NMS kernel at the main path's own inputs: batch 32, and the
+    first image alone (B = 1, as `detect_one` sends)."""
+    from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain, plan_for
 
     boxes, valid = captured["boxes"], captured["valid"]
     keep = nms_keep(boxes, valid, IOU_THRES)
@@ -1416,8 +1457,11 @@ def nms_row(captured: dict) -> dict:
     if err:
         raise AssertionError("kernel and plain keep-masks differ on the "
                              "main path's NMS inputs")
+    b1, v1 = boxes[:1].contiguous(), valid[:1].contiguous()
+    if not torch.equal(nms_keep(b1, v1, IOU_THRES), plain[:1]):
+        raise AssertionError("kernel keep-mask at B=1 differs from plain")
     bound, bound_by = nms_bound_ms(boxes, valid, keep)
-    return {
+    row = {
         "name": "nms_keep", "route": "cuda",
         "source": "mydetection_tpu_torch/kernels/csrc/nms.cu",
         "replaces": "mydetection_tpu/ops/pallas/nms_kernel.py:38",
@@ -1425,7 +1469,23 @@ def nms_row(captured: dict) -> dict:
         "ms": cuda_ms(lambda: nms_keep(boxes, valid, IOU_THRES)),
         "plain_ms": cuda_ms(lambda: nms_keep_plain(boxes, valid, IOU_THRES), 3),
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "ms_b1": cuda_ms(lambda: nms_keep(b1, v1, IOU_THRES)),
+        "bound_ms_b1": nms_bound_ms(b1, v1, keep[:1])[0],
+        "dense_ms": nms_dense_ms(valid),
+        "valid": int(valid.sum()), "kept": int(keep.sum()),
+        "plan": plan_dict(plan_for(valid)), "plan_b1": plan_dict(plan_for(v1)),
+        "note": "no single PyTorch call computes greedy NMS; bound_ms "
+                "counts the IoUs greedy consults on these inputs, "
+                "dense_ms every upper-triangle IoU of the valid rows; "
+                "ms_b1 is the first image alone",
     }
+    print(f"nms on the {path} main path: {row['kept']} kept of "
+          f"{row['valid']} valid, bit-equal; kernel {row['ms']:.4f} ms "
+          f"(bound {bound:.6f} ms by {bound_by}, every valid pair "
+          f"{row['dense_ms']:.6f} ms; {plan_text(plan_for(valid))}), B=1 "
+          f"{row['ms_b1']:.4f} ms ({plan_text(plan_for(v1))}), plain "
+          f"{row['plain_ms']:.3f} ms", flush=True)
+    return row
 
 
 def gn_levels(calls, kind: str, run, bound, library) -> list[dict]:
@@ -1516,7 +1576,9 @@ def gn_row(captured: dict) -> dict:
 
 
 def rotated_row(captured: dict) -> dict:
-    """The suppress kernel at the rapid main path's own inputs."""
+    """The suppress kernel at the rapid main path's own inputs: batch 32,
+    and the first image alone (B = 1)."""
+    from mydetection_tpu_torch.kernels.nms import plan_for
     from mydetection_tpu_torch.kernels.rotated_nms import (
         nms_from_iou_keep,
         nms_from_iou_keep_plain,
@@ -1529,6 +1591,9 @@ def rotated_row(captured: dict) -> dict:
     if err:
         raise AssertionError("suppress kernel and plain keep-masks differ on "
                              "the rapid main path's inputs")
+    i1, v1 = iou[:1].contiguous(), valid[:1].contiguous()
+    if not torch.equal(nms_from_iou_keep(i1, v1, IOU_THRES), plain[:1]):
+        raise AssertionError("suppress kernel at B=1 differs from plain")
     bound, bound_by, dense = rotated_nms_bound_ms(iou, valid, keep)
     row = {
         "name": "nms_from_iou_keep", "route": "cuda",
@@ -1541,15 +1606,24 @@ def rotated_row(captured: dict) -> dict:
                                                             IOU_THRES), 3),
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "dense_read_ms": dense,
+        "ms_b1": cuda_ms(lambda: nms_from_iou_keep(i1, v1, IOU_THRES)),
+        "bound_ms_b1": rotated_nms_bound_ms(i1, v1, keep[:1])[0],
+        "valid": int(valid.sum()), "kept": int(keep.sum()),
+        "plan": plan_dict(plan_for(valid, box_floats=0)),
+        "plan_b1": plan_dict(plan_for(v1, box_floats=0)),
         "note": "no single PyTorch call computes greedy NMS from an IoU "
                 "matrix; bound_ms counts the entries greedy consults on "
-                "these inputs, dense_read_ms every entry of the matrix",
+                "these inputs, dense_read_ms every entry of the matrix; "
+                "ms_b1 is the first image alone",
     }
-    print(f"rotated on the rapid main path: {int(keep.sum())} kept of "
-          f"{int(valid.sum())} valid (per image {keep.sum(1).tolist()}), "
+    print(f"rotated on the rapid main path: {row['kept']} kept of "
+          f"{row['valid']} valid (per image {keep.sum(1).tolist()}), "
           f"bit-equal; kernel {row['ms']:.4f} ms "
           f"(bound {bound:.6f} ms by {bound_by}, the whole matrix read once "
-          f"{dense:.4f} ms), plain {row['plain_ms']:.3f} ms", flush=True)
+          f"{dense:.4f} ms; {plan_text(plan_for(valid, box_floats=0))}), B=1 "
+          f"{row['ms_b1']:.4f} ms "
+          f"({plan_text(plan_for(v1, box_floats=0))}), plain "
+          f"{row['plain_ms']:.3f} ms", flush=True)
     return row
 
 
@@ -2026,16 +2100,13 @@ def main() -> int:
     phase_parity_bf16()
     phase_train_parity()
     yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
-    rows = [nms_row(yolo)]
+    rows = [nms_row(yolo, "yolov3")]
     del yolo
     fcos = drive_main("fcos", 608, 0.005, smi,
                       {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
                        "fused_bottleneck": 6}, capture_gn=True)
     rows.append(gn_row(fcos))
-    on_fcos = nms_row(fcos)
-    print(f"nms on the fcos main path: kernel {on_fcos['ms']:.4f} ms (bound "
-          f"{on_fcos['bound_ms']:.6f} ms by {on_fcos['bound_by']}), plain "
-          f"{on_fcos['plain_ms']:.3f} ms, bit-equal", flush=True)
+    nms_row(fcos, "fcos")
     del fcos
     rapid = drive_main("rapid", 1024, 0.3, smi, {"nms_from_iou_keep": 1})
     rows.append(rotated_row(rapid))
@@ -2044,10 +2115,7 @@ def main() -> int:
                        "fused_bottleneck": 6}
     retina = drive_main("retinanet", 608, 0.005, smi, retina_launches)
     rows += [tower_row(retina), gather_row(retina), bottleneck_row(retina)]
-    on_retina = nms_row(retina)
-    print(f"nms on the retinanet main path: kernel {on_retina['ms']:.4f} ms "
-          f"(bound {on_retina['bound_ms']:.6f} ms by {on_retina['bound_by']}), "
-          f"plain {on_retina['plain_ms']:.3f} ms, bit-equal", flush=True)
+    nms_row(retina, "retinanet")
     del retina
     drive_main("retinanet_r101", 608, 0.005, smi, retina_launches)
     train = phase_train_main(smi)

@@ -12,11 +12,14 @@ import: the first launch on a CUDA tensor builds what it needs, and
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -87,6 +90,18 @@ def build_all() -> dict[str, str]:
         _finish(name, s)
     return {n: library_path(n).with_suffix(".log").read_text()
             for n in started}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA `device`, which the launch
+    plans size their grids by."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels (tower.cu,
-// bottleneck.cu, gn.cu): mbarriers, TMA and plain bulk loads and stores,
+// bottleneck.cu, gn.cu, and through greedy_nms.cuh nms.cu and
+// rotated_nms.cu): mbarriers, TMA and plain bulk loads and stores,
 // the cluster barrier and distributed shared memory, wgmma shared-memory
 // descriptors and products, and the TMA descriptor encoder, looked up in
 // libcuda at run time so that nothing links -lcuda.
@@ -168,6 +169,24 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
                : "r"(remote)
                : "memory");
   return v;
+}
+
+// stores v at `p`'s offset in the shared memory of the cluster's block
+// `rank` (distributed shared memory)
+__device__ __forceinline__ void st_cluster(const void* p, uint32_t rank,
+                                           uint32_t v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(remote), "r"(v)
+               : "memory");
+}
+
+// orders this thread's global-memory writes before bulk copies that read
+// them (issued by any thread of the cluster after a cluster barrier)
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // a wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes

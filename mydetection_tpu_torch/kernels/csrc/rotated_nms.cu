@@ -4,8 +4,7 @@
 // Replaces the TPU kernel mydetection_tpu/ops/pallas/rotated_nms_kernel.py
 // (_suppress_kernel via nms_from_iou_pallas_impl, with
 // ops/pallas/common.py greedy_fixpoint_keep), which the JAX package runs
-// once per image. Here one launch covers every image of the batch: one
-// CUDA block per image.
+// once per image. Here one launch covers every image of the batch.
 //
 // Input: iou (B, K, K) float32, row-major, rows and columns in
 // descending score order; valid (B, K) as 0/1 bytes. Output: keep
@@ -19,145 +18,127 @@
 // The TPU kernel's one-hot MXU contractions and fixpoint loop exist
 // only because Mosaic has no dynamic slice; none of it carries over.
 //
-// Design: the block holds its image's suppression bitmask in shared
-// memory, K rows of ceil(K/32) words (32 KB at K = 512):
-//   1. each warp takes rows i; 32 lanes read 32 consecutive floats of
-//      row i (coalesced, 8 words in flight a warp) and one ballot turns
-//      them into the word's bits (iou > thr and column > i). Rows of
-//      invalid boxes are never kept and the words left of the diagonal
-//      are never read, so neither is loaded;
-//   2. one warp resolves the greedy order a word (32 rows) at a time:
-//      the word's alive rows are resolved in order against their own
-//      word, then its kept rows are ORed into the removed bits of every
-//      later word, one lane a word;
-//   3. the keep bits are written out as bytes.
+// Design (greedy_nms.cuh): a thread block cluster of up to 16 blocks an
+// image, each reading a share of the rows of the matrix's upper triangle
+// (a warp a row; 32 lanes read 32 consecutive floats, coalesced, 8 words
+// in flight a warp, and one ballot turns them into the word's bits).
+// Rows of invalid boxes, and columns past the last valid box, are never
+// loaded. The words go straight into block 0's shared memory over
+// distributed shared memory (the packed triangle is 17 KB at K = 512),
+// or, above K = 1,856, to a global scratch that block 0 streams back in
+// word blocks. One warp of block 0 then resolves the greedy order.
 //
 // Bound on an H100: bytes. The full matrix is B*K*K*4 bytes, 33.6 MB at
 // B = 32, K = 512 (10 us at 3.35 TB/s); the upper triangle of the valid
-// rows, which is all this kernel reads, is about half. The compares are
-// at most 8.4e6 (0.13 us at the fp32 rate). B = 32 blocks fill 32 of the
-// 132 SMs, and the one-warp resolve (K steps in 32-row words) is
-// sequential: several blocks per image and a warp-parallel resolve are
-// later work.
+// rows, which is all this kernel reads, is about half, spread over the
+// B clusters' SMs. The compares are at most 8.4e6 (0.13 us at the fp32
+// rate). Greedy itself consults far fewer entries
+// (chip_smoke.py::rotated_nms_bound_ms).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "greedy_nms.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using greedy::kFull;
+using greedy::kThreads;
+using greedy::kWarps;
+
 constexpr int kUnroll = 8;  // bitmask words a warp has in flight
 
+template <bool kBanded>
 __global__ void __launch_bounds__(kThreads)
 nms_from_iou_kernel(const float* __restrict__ iou,
                     const uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ keep_out, int k, int words,
-                    float thr) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* mask = smem;                                  // k * words
-  uint32_t* valid_bits = mask + static_cast<size_t>(k) * words;
-  uint32_t* removed = valid_bits + words;
-  uint32_t* kept = removed + words;
+                    uint8_t* __restrict__ keep_out,
+                    uint32_t* __restrict__ scratch, int k, float thr,
+                    int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const greedy::Layout l = greedy::make_layout(k, 0, stages);
+  const int n = greedy::cluster_size();
+  const int rank = greedy::cluster_rank();
+  const size_t img = blockIdx.x / n;
+  const int n_valid = greedy::begin(valid + img * k, k, l, smem, stages);
+  const uint32_t* valid_bits =
+      reinterpret_cast<const uint32_t*>(smem + l.valid);
+  // every block of the cluster has started: block 0 takes stores into its
+  // shared memory from here on
+  hopper::cluster_arrive();
+  hopper::cluster_wait();
 
-  const size_t img = blockIdx.x;
+  // 1. the mask: row i (valid) in block i % n, warp (i / n) % kWarps;
+  //    bit c of word w: iou[i][32w + c] > thr, 32w + c > i
   const float* m = iou + img * static_cast<size_t>(k) * k;
-  const uint8_t* v = valid + img * k;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int w = warp; w < words; w += kWarps) {
-    const int j = w * 32 + lane;
-    const uint32_t bits = __ballot_sync(0xffffffffu, j < k && v[j] != 0);
-    if (lane == 0) {
-      valid_bits[w] = bits;
-      removed[w] = 0u;
-    }
-  }
-  __syncthreads();
-
-  // 1. bit c of mask[i * words + w]: iou[i][32w + c] > thr, 32w + c > i
-  for (int i = warp; i < k; i += kWarps) {
-    if (!((valid_bits[i >> 5] >> (i & 31)) & 1u)) continue;
-    const float* row = m + static_cast<size_t>(i) * k;
-    uint32_t* out = mask + static_cast<size_t>(i) * words;
-    for (int w0 = i >> 5; w0 < words; w0 += kUnroll) {
-      float x[kUnroll];
+  const int last = (n_valid - 1) >> 5;  // the last word with a valid box
+  uint32_t* mask =
+      kBanded ? scratch + img * greedy::block_offset(l.words, l.words)
+              : reinterpret_cast<uint32_t*>(smem + l.mask);
+  for (int i = rank + n * (threadIdx.x >> 5); i < n_valid; i += n * kWarps) {
+    if (!greedy::bit(valid_bits, i)) continue;
+    const int q = i >> 5;
+    uint32_t* row = greedy::row_start(mask, i, l.words);
+    const float* src = m + static_cast<size_t>(i) * k;
+    for (int w0 = q; w0 <= last; w0 += 32) {
+      const int nw = min(32, last - w0 + 1);
+      uint32_t mine = 0u;  // lane u keeps word w0 + u
+      for (int u0 = 0; u0 < nw; u0 += kUnroll) {
+        float x[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = (w0 + u) * 32 + lane;
-        x[u] = j < k ? __ldg(row + j) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = (w0 + u) * 32 + lane;
-        const uint32_t bits =
-            __ballot_sync(0xffffffffu, j > i && j < k && x[u] > thr);
-        if (lane == 0 && w0 + u < words) out[w0 + u] = bits;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 2. greedy resolve, one warp, a word of 32 rows at a time
-  if (warp == 0) {
-    for (int wb = 0; wb < words; ++wb) {
-      uint32_t alive = valid_bits[wb] & ~removed[wb];
-      uint32_t kb = 0u;
-      uint32_t scan = alive;
-      while (scan) {
-        const int c = __ffs(scan) - 1;
-        kb |= 1u << c;
-        alive &= ~mask[static_cast<size_t>(wb * 32 + c) * words + wb];
-        scan = alive & ~((2u << c) - 1u);  // alive rows after c
-      }
-      for (int w = wb + 1 + lane; w < words; w += 32) {
-        uint32_t acc = removed[w];
-        uint32_t bits = kb;
-        while (bits) {
-          const int c = __ffs(bits) - 1;
-          bits &= bits - 1u;
-          acc |= mask[static_cast<size_t>(wb * 32 + c) * words + w];
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = (w0 + u0 + u) * 32 + lane;
+          x[u] = u0 + u < nw && j < n_valid ? __ldg(src + j) : 0.0f;
         }
-        removed[w] = acc;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = (w0 + u0 + u) * 32 + lane;
+          const uint32_t word = __ballot_sync(
+              kFull, u0 + u < nw && j > i && j < n_valid && x[u] > thr);
+          if (lane == u0 + u) mine = word;
+        }
       }
-      if (lane == 0) kept[wb] = kb;
-      __syncwarp();
+      if (lane < nw) greedy::store_word<kBanded>(row, w0 - q + lane, mine);
     }
   }
-  __syncthreads();
-
-  // 3. keep bits out as bytes
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    keep_out[img * k + j] = (kept[j >> 5] >> (j & 31)) & 1u;
-  }
+  // 2. block 0 resolves and writes the keep bytes
+  if (!greedy::mask_done<kBanded>()) return;
+  greedy::resolve_and_write<kBanded>(smem, l, scratch, stages, k, n_valid,
+                                     img, keep_out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the kernel needs for K boxes: the K x ceil(K/32)
-// bitmask and three words a 32 boxes (valid, removed, kept bits).
-size_t rotated_nms_smem_bytes(int k) {
-  const size_t words = (static_cast<size_t>(k) + 31) / 32;
-  return (static_cast<size_t>(k) + 3) * words * sizeof(uint32_t);
+// Dynamic shared memory a block takes for K boxes; stages 0: the mask on
+// chip, else the banded resolve's ring stages (kernels/nms.py::smem_bytes
+// computes the same).
+size_t rotated_nms_layout_bytes(int k, int stages) {
+  return greedy::make_layout(k, 0, stages).total;
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch.
+// iou (B, K, K) float32; valid and keep (B, K) bytes; scratch (B, packed
+// triangle words) uint32 where stages > 0, else unused; the plan
+// (cluster, stages, smem) from kernels/nms.py::nms_plan. Launches on
+// `stream`; returns the cudaError_t of the launch (cudaErrorInvalidValue
+// for a plan the layout disagrees with).
 int nms_from_iou_keep_launch(const float* iou, const uint8_t* valid,
-                             uint8_t* keep, int b, int k, float thr,
+                             uint8_t* keep, uint32_t* scratch, int b, int k,
+                             float thr, int cluster, int stages, int smem,
                              void* stream) {
-  const size_t smem = rotated_nms_smem_bytes(k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_from_iou_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (!greedy::plan_ok(b, k, 0, cluster, stages, smem, scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  nms_from_iou_kernel<<<b, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      iou, valid, keep, k, (k + 31) / 32, thr);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      stages == 0
+          ? greedy::launch(nms_from_iou_kernel<false>, b, cluster, smem, s,
+                           iou, valid, keep, scratch, k, thr, stages)
+          : greedy::launch(nms_from_iou_kernel<true>, b, cluster, smem, s,
+                           iou, valid, keep, scratch, k, thr, stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

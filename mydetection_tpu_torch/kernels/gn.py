@@ -286,16 +286,11 @@ def _check_cuda(name: str, x: torch.Tensor, groups: int,
                              f"{tuple(v.shape)} {v.dtype} on {v.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(kind: str, x: torch.Tensor, groups: int) -> GNPlan:
     """`gn_plan` for x (B, C, H, W) on its card."""
     b, c, h, w = x.shape
     return gn_plan(kind, b, h * w, c, groups, x.element_size(),
-                   _sms(x.device.index or 0))
+                   build.sm_count(x.device))
 
 
 def max_active_clusters(kind: str, x: torch.Tensor, groups: int) -> int:

@@ -16,11 +16,15 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from mydetection_tpu_torch.kernels import build
-from mydetection_tpu_torch.kernels.nms import _SMEM_LIMIT, greedy_keep_from_iou
+from mydetection_tpu_torch.kernels.nms import (
+    LAUNCH_ARGTYPES,
+    greedy_keep_from_iou,
+    launch,
+    plan_for,
+)
 
 
 def nms_from_iou_keep_plain(iou: torch.Tensor, valid: torch.Tensor,
@@ -39,8 +43,10 @@ def nms_from_iou_keep(iou: torch.Tensor, valid: torch.Tensor,
     iou (B, K, K) float32 contiguous, rows and columns sorted by
     descending score; valid (B, K) bool or uint8. Returns bool (B, K).
     CPU tensors run `nms_from_iou_keep_plain` (in blocks of `block`);
-    CUDA tensors launch the kernel (one block per image, the result does
-    not depend on `block`) and count the launch.
+    CUDA tensors launch the kernel (`plan_for(valid, box_floats=0)`: a
+    cluster of blocks an image; the result does not depend on `block`)
+    and count the launch. Raises ValueError for a K whose ring does not
+    fit a block's shared memory (above 27,680).
     """
     if iou.device.type == "cpu":
         return nms_from_iou_keep_plain(iou, valid, iou_thres, block=block)
@@ -62,16 +68,10 @@ def nms_from_iou_keep(iou: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
     if b == 0 or k == 0:
         return keep
+    plan = plan_for(valid, box_floats=0)
     lib = _library()
-    if lib.rotated_nms_smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"K={k}: the {k}x{k} bitmask does not fit one "
-                         f"block's shared memory")
-    with torch.cuda.device(iou.device):
-        stream = torch.cuda.current_stream(iou.device).cuda_stream
-        err = lib.nms_from_iou_keep_launch(iou.data_ptr(), valid.data_ptr(),
-                                           keep.data_ptr(), b, k,
-                                           float(np.float32(iou_thres)),
-                                           stream)
+    err = launch(lib.nms_from_iou_keep_launch, iou, valid, keep, iou_thres,
+                 plan)
     if err:
         raise RuntimeError(f"nms_from_iou_keep launch failed: "
                            f"{lib.rotated_nms_error_string(err).decode()}")
@@ -84,12 +84,10 @@ nms_from_iou_keep.launches = 0
 
 def _library() -> ctypes.CDLL:
     lib = build.load("rotated_nms")
-    lib.nms_from_iou_keep_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.nms_from_iou_keep_launch.argtypes = LAUNCH_ARGTYPES
     lib.nms_from_iou_keep_launch.restype = ctypes.c_int
-    lib.rotated_nms_smem_bytes.argtypes = [ctypes.c_int]
-    lib.rotated_nms_smem_bytes.restype = ctypes.c_size_t
+    lib.rotated_nms_layout_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rotated_nms_layout_bytes.restype = ctypes.c_size_t
     lib.rotated_nms_error_string.argtypes = [ctypes.c_int]
     lib.rotated_nms_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,9 +1,9 @@
-"""The port on the card: the CUDA NMS, bias+GroupNorm+ReLU (forward,
-forward with statistics, fused backward), rotated-NMS suppress, conv
-chain, row gather and fused bottleneck kernels against their plain
-versions, the CUDA Detectors (yolov3, fcos, rapid, retinanet,
-retinanet_r101) against the CPU ones, and the CUDA fcos train step
-against the CPU one. Every test skips on a host without a GPU. This
+"""The port on the card: the CUDA NMS (on chip, banded, every cluster
+size), bias+GroupNorm+ReLU (forward, forward with statistics, fused
+backward), rotated-NMS suppress, conv chain, row gather and fused
+bottleneck kernels against their plain versions, the CUDA Detectors
+(yolov3, fcos, rapid, retinanet, retinanet_r101) against the CPU ones,
+and the CUDA fcos train step against the CPU one. Every test skips on a host without a GPU. This
 file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 from chip_smoke import (  # noqa: E402
     GN_EDGE_SHAPES,
     GN_GROUPS,
+    OLD_LARGEST_NMS_K,
+    OLD_LARGEST_ROTATED_K,
     bottleneck_case,
     bottleneck_error,
     check_parity,
@@ -69,6 +71,7 @@ from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
     conv3x3_chain_plain,
     conv3x3_chain_reference,
 )
+from mydetection_tpu_torch.ops.boxes import pairwise_iou  # noqa: E402
 
 THR = 0.45
 pytestmark = pytest.mark.cuda
@@ -81,19 +84,109 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k", [1024, 200, 2500])
-def test_kernel_matches_plain(cuda, k):
-    """K = 200 ends in a partial tile; K = 2500 needs more than 48 KB of
-    shared memory."""
-    boxes, valid = nms_cases(np.random.RandomState(k), 12, k)
-    b = torch.from_numpy(boxes).to(cuda)
+@pytest.mark.parametrize("b,k", [(b, k) for b in (1, 12)
+                                 for k in (200, 1024, 2048)]
+                         + [(1, OLD_LARGEST_NMS_K), (6, OLD_LARGEST_NMS_K)])
+def test_kernel_matches_plain(cuda, b, k):
+    """chip_smoke's hard cases; K = 200 ends in a partial word, 1024 is
+    the paths' (on chip), 2048 and the largest K the one-block kernel
+    took are banded (the mask through a global scratch)."""
+    boxes, valid = nms_cases(np.random.RandomState(k + b), b, k)
+    bx = torch.from_numpy(boxes).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
     before = nms_keep.launches
-    got = nms_keep(b, v, THR)
+    got = nms_keep(bx, v, THR)
     torch.cuda.synchronize()
     assert nms_keep.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
-                                  nms_keep_plain(b, v, THR).cpu().numpy())
+                                  nms_keep_plain(bx, v, THR).cpu().numpy())
+
+
+@pytest.mark.parametrize("thr", [THR, 0.0, -0.5])
+def test_kernel_is_exact_at_touching_edges_and_any_threshold(cuda, thr):
+    """Boxes in rows that touch edge to edge (intersection exactly 0),
+    overlap by a sliver or repeat: the division-free IoU test bit-equal
+    to plain at a positive, a zero and a negative threshold, where
+    0 > thr suppresses every pair."""
+    rng = np.random.RandomState(7)
+    k = 300
+    x = np.repeat(np.arange(30, dtype=np.float32) * 10, 10)[:k]
+    y = np.tile(np.arange(10, dtype=np.float32) * 10, 30)[:k]
+    boxes = np.stack([x, y, x + 10, y + 10], 1)
+    sliver = rng.uniform(size=k) < 0.2
+    boxes[sliver, 2] += np.float32(1e-3)
+    dup = rng.uniform(size=k) < 0.2
+    boxes[dup] = boxes[rng.randint(0, k, int(dup.sum()))]
+    bx = torch.from_numpy(np.stack([boxes, boxes[::-1].copy()])).to(cuda)
+    v = torch.from_numpy(rng.uniform(size=(2, k)) < 0.9).to(cuda)
+    np.testing.assert_array_equal(nms_keep(bx, v, thr).cpu().numpy(),
+                                  nms_keep_plain(bx, v, thr).cpu().numpy())
+
+
+@pytest.mark.parametrize("kernel", ["nms", "rotated_nms"])
+@pytest.mark.parametrize("k", [1, 33, 999])
+def test_kernels_take_odd_k_and_empty_images(cuda, kernel, k):
+    """K = 1, one past a word, and an odd K ending in a partial word,
+    on an image with no valid box, one whose only valid box is the last
+    and one all valid: both kernels bit-equal to plain, nothing kept
+    where nothing is valid, the lone valid box and the top box kept."""
+    rng = np.random.RandomState(k)
+    xy = rng.uniform(0, 200, (3, k, 2)).astype(np.float32)
+    wh = rng.uniform(5, 60, (3, k, 2)).astype(np.float32)
+    bx = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(cuda)
+    valid = np.ones((3, k), bool)
+    valid[0] = False
+    valid[1, :-1] = False
+    v = torch.from_numpy(valid).to(cuda)
+    if kernel == "nms":
+        got, ref = nms_keep(bx, v, THR), nms_keep_plain(bx, v, THR)
+    else:
+        iou = pairwise_iou(bx, bx).contiguous()
+        got = nms_from_iou_keep(iou, v, THR)
+        ref = nms_from_iou_keep_plain(iou, v, THR)
+    assert torch.equal(got, ref)
+    assert not got[0].any()
+    assert got[1, -1] and int(got[1].sum()) == 1 and got[2, 0]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16])
+def test_banded_plan_equals_on_chip(cuda, cluster):
+    """At K = 1024 the banded resolve (mask through the global scratch,
+    three ring stages) and the on-chip one give the same keep-set at
+    every cluster size."""
+    from mydetection_tpu_torch.kernels import nms as knms
+
+    boxes, valid = nms_cases(np.random.RandomState(5), 12, 1024)
+    bx = torch.from_numpy(boxes).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    lib = knms._library()
+    ref = nms_keep_plain(bx, v, THR)
+    for stages in (0, 3):
+        plan = knms.NMSPlan(cluster=cluster, stages=stages,
+                            smem=knms.smem_bytes(1024, knms.BOX_FLOATS,
+                                                 stages),
+                            rows=-(-1024 // cluster),
+                            scratch=knms.block_offset(32, 32) if stages else 0)
+        keep = torch.empty_like(v)
+        assert knms.launch(lib.nms_keep_launch, bx, v, keep, THR, plan) == 0
+        assert torch.equal(keep, ref), (cluster, stages)
+
+
+@pytest.mark.parametrize("kernel", ["nms", "rotated_nms"])
+def test_plan_layout_matches_the_kernel(cuda, kernel):
+    """`kernels.nms.smem_bytes` gives the bytes csrc/greedy_nms.cuh lays
+    out, on chip and banded, at the paths' K and at the largest K each
+    kernel takes."""
+    from mydetection_tpu_torch.kernels import nms as knms
+    from mydetection_tpu_torch.kernels import rotated_nms as krot
+
+    lib = knms._library() if kernel == "nms" else krot._library()
+    layout = (lib.nms_keep_layout_bytes if kernel == "nms"
+              else lib.rotated_nms_layout_bytes)
+    floats = knms.BOX_FLOATS if kernel == "nms" else 0
+    for k in (1, 200, 512, 1024, 2048, 11360, 27680):
+        for stages in (0, 2, 7):
+            assert layout(k, stages) == knms.smem_bytes(k, floats, stages)
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -106,24 +199,30 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="valid"):
         nms_keep(b, v.cpu(), THR)
     with pytest.raises(ValueError, match="shared memory"):
-        nms_keep(torch.zeros(1, 20000, 4, device=cuda),
-                 torch.ones(1, 20000, dtype=torch.bool, device=cuda), THR)
+        nms_keep(torch.zeros(1, 11361, 4, device=cuda),
+                 torch.ones(1, 11361, dtype=torch.bool, device=cuda), THR)
 
 
-@pytest.mark.parametrize("k", [512, 200, 1344])
-def test_rotated_kernel_matches_plain(cuda, k):
+@pytest.mark.parametrize("b,k", [(b, k) for b in (1, 12)
+                                 for k in (200, 512, 2048)]
+                         + [(12, OLD_LARGEST_ROTATED_K)])
+def test_rotated_kernel_matches_plain(cuda, b, k):
     """chip_smoke's hard cases (near-threshold entries, an asymmetric
     matrix, all padding, few valid rows). K = 200 is not a multiple of
-    32; K = 1344 needs 226 KB of shared memory, near the limit."""
-    iou, valid = rotated_cases(np.random.RandomState(k), 12, k, device="cuda")
+    32; 512 is rapid's (on chip); 2048 is banded; 1348 the largest K the
+    one-block kernel took."""
+    iou, valid = rotated_cases(np.random.RandomState(k + b), b, k,
+                               device="cuda")
     before = nms_from_iou_keep.launches
     got = nms_from_iou_keep(iou, valid, THR)
     torch.cuda.synchronize()
     assert nms_from_iou_keep.launches == before + 1
-    assert got.dtype == torch.bool and got.shape == (12, k)
+    assert got.dtype == torch.bool and got.shape == (b, k)
     np.testing.assert_array_equal(
         got.cpu().numpy(), nms_from_iou_keep_plain(iou, valid, THR).cpu().numpy())
-    assert not got[4].any() and got.any()
+    assert got.any()
+    if b > 4:
+        assert not got[4].any()
 
 
 def test_rotated_kernel_reads_earlier_row_later_column(cuda):
@@ -136,6 +235,21 @@ def test_rotated_kernel_reads_earlier_row_later_column(cuda):
     assert not torch.equal(a, b)
     assert torch.equal(a, nms_from_iou_keep_plain(m, v, THR))
     assert torch.equal(b, nms_from_iou_keep_plain(t, v, THR))
+
+
+@pytest.mark.parametrize("k", [512, 2048])
+def test_rotated_kernel_nan_never_suppresses(cuda, k):
+    """A third of the entries NaN: no NaN suppresses, on chip and
+    banded."""
+    iou, valid = rotated_cases(np.random.RandomState(11), 6, k,
+                               device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    nan = torch.rand(iou.shape, device=cuda, generator=gen) < 0.33
+    iou = iou.masked_fill(nan, float("nan")).contiguous()
+    got = nms_from_iou_keep(iou, valid, THR)
+    assert torch.equal(got, nms_from_iou_keep_plain(iou, valid, THR))
+    clean = nms_from_iou_keep(iou.nan_to_num(0.0), valid, THR)
+    assert torch.equal(got, clean)
 
 
 def test_rotated_kernel_rejects_bad_inputs(cuda):
@@ -151,8 +265,8 @@ def test_rotated_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="valid"):
         nms_from_iou_keep(iou, v.float(), THR)
     with pytest.raises(ValueError, match="shared memory"):
-        nms_from_iou_keep(torch.zeros(1, 1400, 1400, device=cuda),
-                          torch.ones(1, 1400, dtype=torch.bool, device=cuda),
+        nms_from_iou_keep(torch.empty(1, 27681, 27681, device=cuda),
+                          torch.ones(1, 27681, dtype=torch.bool, device=cuda),
                           THR)
     assert nms_from_iou_keep.launches == before
 
