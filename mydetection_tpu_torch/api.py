@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from mydetection_tpu_torch import checkpoint as ckpt_lib
-from mydetection_tpu_torch.convert import from_jax_params
+from mydetection_tpu_torch import weight_import as wi
+from mydetection_tpu_torch.convert import from_jax_params, model_tree
 from mydetection_tpu_torch.models.layers import init_weights
 from mydetection_tpu_torch.ops.nms import postprocess
 from mydetection_tpu_torch.ops.rotated import box_corners, rotated_postprocess
@@ -174,8 +175,11 @@ class Detector:
         detections = det.detect_one(img_path='dog.jpg', conf_thres=0.3)
 
     `params` takes a JAX parameter tree, nested or flattened with
-    `checkpoint.flatten_tree`; `weights_path` an `.npz` checkpoint; with
-    neither, the weights come from `init_weights(model, rng_seed)`.
+    `checkpoint.flatten_tree`; `weights_path` an `.npz` checkpoint, a
+    darknet `.weights` file (yolov3, rapid) or a torchvision `.pt` /
+    `.pth` state dict (retinanet, fcos with `ltrb_decode="linear"`);
+    with neither, the weights come from `init_weights(model,
+    rng_seed)`.
     """
 
     def __init__(self, model_name: str = "yolov3",
@@ -195,8 +199,8 @@ class Detector:
                 params = ckpt_lib.flatten_tree(params)
             self.model.load_state_dict(from_jax_params(params), strict=True)
         elif weights_path is not None:
-            self.model.load_state_dict(self._load_weights(weights_path),
-                                       strict=True)
+            self.model.load_state_dict(
+                self._load_weights(weights_path, rng_seed), strict=True)
         else:
             init_weights(self.model, rng_seed)
         self.model.eval().requires_grad_(False).to(device)
@@ -204,14 +208,59 @@ class Detector:
             self.model.to(memory_format=torch.channels_last)
         self._post = make_post(self.cfg)
 
-    def _load_weights(self, path: str) -> dict:
-        if not path.lower().endswith(".npz"):
+    def _load_weights(self, path: str, rng_seed: int) -> dict:
+        """A state_dict from a weights file, by its format:
+
+          *.npz          the checkpoint format both packages write,
+                         checked against the model's geometry first;
+          *.weights      a darknet binary (yolov3 and rapid only);
+          *.pt / *.pth   a torch checkpoint, through the torchvision
+                         RetinaNet or FCOS importer.
+
+        The importers fill the JAX-named tree of the model at
+        `init_weights(rng_seed)`, so what a file lacks (FCOS's per-level
+        scales) keeps that init."""
+        lower = path.lower()
+        if lower.endswith(".weights"):
+            if self.cfg.family not in ("yolov3", "rapid"):
+                raise ValueError(
+                    f"darknet .weights files hold Darknet-53-family "
+                    f"parameters (yolov3/rapid), not '{self.cfg.name}' — "
+                    "use an .npz checkpoint or a torch .pt with the "
+                    "matching importer")
+            return self._import(wi.load_darknet_weights, path, rng_seed)
+        if lower.endswith((".pt", ".pth")):
+            state = wi.load_torch_checkpoint(path)
+            name = self.cfg.name
+            if name.startswith("retinanet"):
+                return self._import(wi.import_retinanet_state_dict, state,
+                                    rng_seed)
+            if name.startswith("fcos"):
+                if self.cfg.ltrb_decode != "linear":
+                    raise ValueError(
+                        "torchvision FCOS checkpoints regress relu-linear "
+                        "ltrb (not the paper's exp decode this framework "
+                        "trains with) — construct the detector with "
+                        "Detector(model_name='fcos', ltrb_decode='linear', "
+                        "weights_path=...) so imported boxes decode "
+                        "correctly")
+                return self._import(wi.import_fcos_state_dict, state,
+                                    rng_seed)
             raise ValueError(
-                f"the port loads .npz checkpoints (the JAX package's "
-                f"format); darknet .weights and torch .pt importers arrive "
-                f"with a later slice — got {path}")
+                f"no torch-checkpoint importer for model '{name}'; use "
+                "weight_import.import_state_dict with an explicit name "
+                "mapping, or convert to .npz via checkpoint.save_checkpoint")
+        params = ckpt_lib.load_params(path)
+        ckpt_lib.check_params_compatible(model_tree(self.model), params,
+                                         context=f" '{self.cfg.name}'")
+        return from_jax_params(ckpt_lib.flatten_tree(params))
+
+    def _import(self, importer, source, rng_seed: int) -> dict:
+        """`importer(template, source)` on the JAX-named tree of the
+        model at `init_weights(rng_seed)` → a state_dict."""
+        init_weights(self.model, rng_seed)
         return from_jax_params(ckpt_lib.flatten_tree(
-            ckpt_lib.load_params(path)))
+            importer(model_tree(self.model), source)))
 
     def _run_batch(self, canvases, conf_thres, nms_iou: float,
                    n_real: int) -> dict:

@@ -22,7 +22,10 @@ tap t = (dy+1)·3 + (dx+1)'s weights from input channel c_in — the TPU
 kernel's `(L·9·C, C)` layout, split by layer.
 
 The chain has no backward, and neither has the TPU kernel: on a CUDA
-tensor under autograd the wrapper raises.
+tensor under autograd the wrapper raises. RetinaNet's training step
+runs its towers through `conv3x3_chain_plain` (cuDNN) instead, as the
+JAX package trains them through `_subnet`'s XLA convs
+(`models/retinanet.py::Subnet`).
 """
 
 from __future__ import annotations
@@ -142,8 +145,8 @@ def conv3x3_chain(x: torch.Tensor, packed: torch.Tensor,
             t.requires_grad for t in (x, packed, biases)):
         raise NotImplementedError(
             "conv3x3_chain has no backward (nor has the TPU kernel it "
-            "replaces); RetinaNet training arrives with the RetinaNet "
-            "training slice of the port")
+            "replaces); under autograd run conv3x3_chain_plain, as the "
+            "RetinaNet subnets do when they train")
     _check_cuda(x, packed, biases)
     b, c, h, w = x.shape
     layers = packed.shape[0]

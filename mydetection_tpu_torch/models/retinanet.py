@@ -1,18 +1,23 @@
-"""RetinaNet: anchors, the shared class and box subnets, decode, encode.
+"""RetinaNet: anchors, the shared class and box subnets, decode, encode
+and the loss.
 
 A port of `mydetection_tpu/models/retinanet.py` (`level_shapes`,
 `anchor_wh`, `generate_anchors`, `init`, `_subnet`, `apply`,
-`decode_boxes`, `decode`, `encode`) and of the registry's
+`decode_boxes`, `decode`, `encode`, `loss`) and of the registry's
 `_build_retinanet`: ResNet-50/101 → FPN P3–P7 → two subnets of four
 3x3 conv(256→256) + bias + ReLU layers and an output conv, A = 9
-anchors a cell. The loss waits for the RetinaNet training slice.
+anchors a cell.
 
 Each subnet's four tower layers run as one `kernels.tower.
 conv3x3_chain` call per level (the CUDA kernel on the card, its plain
 version on the CPU), 2 subnets × 5 levels = 10 calls a forward; the
 subnet's weights are packed into the kernel's layout once per forward,
-outside the level loop. The output conv stays a cuDNN conv plus its
-bias, as the JAX package computes it outside any Pallas kernel.
+outside the level loop. The chain has no backward, and neither has the
+TPU kernel (the JAX package trains its towers through `_subnet`'s XLA
+convs): under autograd the towers run `conv3x3_chain_plain`, the same
+loop on cuDNN, chosen by grad mode as `fcos.Tower` chooses its GN
+kernels. The output conv stays a cuDNN conv plus its bias, as the JAX
+package computes it outside any Pallas kernel.
 
 Outputs leave the head NHWC-flattened: flat index (h·W + w)·9 + a,
 channel a·C + c, levels concatenated in order. Class logits (and the
@@ -29,10 +34,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.kernels.tower import conv3x3_chain, pack_weights
+from mydetection_tpu_torch.kernels.tower import (
+    conv3x3_chain,
+    conv3x3_chain_plain,
+    pack_weights,
+)
+from mydetection_tpu_torch.losses import focal_loss, smooth_l1, take_along_dim
 from mydetection_tpu_torch.models.fpn import FPN, conv_bias
 from mydetection_tpu_torch.models.resnet import ResNet, prepare_input
-from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
+from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy, pairwise_iou
 
 STRIDES = (8, 16, 32, 64, 128)
 OCTAVE_SCALES = (1.0, 2 ** (1 / 3), 2 ** (2 / 3))
@@ -105,8 +115,9 @@ def _head_conv(c_in: int, c_out: int, bias: float = 0.0) -> nn.Conv2d:
 
 
 class Subnet(nn.Module):
-    """conv0..conv3 (the tower, one `conv3x3_chain` call a level) and
-    the output conv; names follow the JAX tree (`head/cls/conv0/w`)."""
+    """conv0..conv3 (the tower, one `conv3x3_chain` call a level, or
+    `conv3x3_chain_plain` under autograd) and the output conv; names
+    follow the JAX tree (`head/cls/conv0/w`)."""
 
     def __init__(self, channels: int, c_final: int, final_bias: float):
         super().__init__()
@@ -123,7 +134,10 @@ class Subnet(nn.Module):
 
     def forward(self, x: torch.Tensor, packed: torch.Tensor,
                 biases: torch.Tensor) -> torch.Tensor:
-        return conv_bias(self.out, conv3x3_chain(x, packed, biases))
+        args = (x, packed, biases)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return conv_bias(self.out, conv3x3_chain_plain(*args))
+        return conv_bias(self.out, conv3x3_chain(*args))
 
 
 def _flat(y: torch.Tensor, per_anchor: int) -> torch.Tensor:
@@ -173,10 +187,14 @@ class RetinaNet(nn.Module):
         self.fpn = FPN()
         self.head = RetinaNetHead(num_classes)
 
-    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, images: torch.Tensor, *,
+                with_gate: bool | None = None) -> tuple[torch.Tensor, ...]:
+        """uint8 NHWC images → raw heads; `with_gate` None = the
+        config's (the loss asks for none)."""
         x = prepare_input(images.permute(0, 3, 1, 2), self.compute_dtype)
         return self.head(self.fpn(self.backbone(x)),
-                         with_gate=self.with_gate)
+                         with_gate=self.with_gate if with_gate is None
+                         else with_gate)
 
 
 # ---------------------------------------------------------------------------
@@ -212,3 +230,64 @@ def encode(gt_cxcywh: torch.Tensor,
     d_wh = torch.log(torch.clamp(gt_cxcywh[..., 2:] / anchors_cxcywh[..., 2:],
                                  min=1e-8))
     return torch.cat([d_ctr, d_wh], -1)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def assign(anchors_cxcywh: torch.Tensor, gt_boxes: torch.Tensor,
+           gt_valid: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """RetinaNet's anchor assignment, `retinanet.py::loss`: an anchor
+    whose best valid-GT IoU is at least POS_IOU is positive, below
+    NEG_IOU negative, the band between ignored. Each valid GT's best
+    anchor (the first on ties) is also forced positive and matched to
+    it; where several GT force one anchor the highest GT index wins (a
+    max-scatter of GT votes, padded GT voting −1, which is
+    deterministic on the card too). Other anchors match their best GT
+    (the first on ties). Returns (positive (B, N) bool, negative (B, N)
+    bool, matched (B, N) int64)."""
+    iou = pairwise_iou(cxcywh_to_xyxy(anchors_cxcywh)[None],
+                       cxcywh_to_xyxy(gt_boxes))               # (B, N, M)
+    iou = torch.where(gt_valid[:, None, :], iou, -1.0)
+    best_gt_iou = iou.amax(-1)                                  # (B, N)
+    best_gt = torch.argmax(iou, -1)
+    best_anchor = torch.argmax(iou, 1)                          # (B, M)
+    del iou
+    b, m = gt_valid.shape
+    votes = torch.where(gt_valid, torch.arange(m, device=gt_valid.device), -1)
+    force_votes = torch.full((b, anchors_cxcywh.shape[0]), -1,
+                             dtype=torch.int64, device=gt_valid.device)
+    force_votes.scatter_reduce_(1, best_anchor, votes, reduce="amax")
+    force = force_votes >= 0
+    positive = (best_gt_iou >= POS_IOU) | force
+    negative = (best_gt_iou < NEG_IOU) & ~force
+    return positive, negative, torch.where(force, force_votes.clamp(min=0),
+                                           best_gt)
+
+
+def loss(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
+         anchors_cxcywh: torch.Tensor, gt_boxes: torch.Tensor,
+         gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+         num_classes: int = 80) -> dict:
+    """Focal (cls) + smooth-L1 (box) under `assign`,
+    `retinanet.py::loss`: focal loss over positive | negative anchors
+    and smooth-L1 of the deltas against `encode` of the matched GT on
+    the positives, both divided by max(positives, 1).
+
+    cls_logits (B, N, C) float32, box_deltas (B, N, 4), anchors (N, 4)
+    cxcywh; gt_boxes (B, M, 4) cxcywh net pixels, gt_classes (B, M)
+    int, gt_valid (B, M) bool. Returns {"cls", "box", "total"}."""
+    positive, negative, matched = assign(anchors_cxcywh, gt_boxes, gt_valid)
+    tgt_cls = take_along_dim(gt_classes, matched)               # (B, N)
+    cls_onehot = ((tgt_cls[..., None] == torch.arange(
+        num_classes, device=tgt_cls.device)) & positive[..., None]).float()
+    fl = focal_loss(cls_logits, cls_onehot)                     # (B, N, C)
+    num_pos = torch.clamp(positive.sum().float(), min=1.0)
+    cls_loss = (fl * (positive | negative)[..., None]).sum() / num_pos
+
+    reg_tgt = encode(take_along_dim(gt_boxes, matched), anchors_cxcywh[None])
+    reg = smooth_l1(box_deltas, reg_tgt).sum(-1)                # (B, N)
+    box_loss = (reg * positive).sum() / num_pos
+    return {"cls": cls_loss, "box": box_loss, "total": cls_loss + box_loss}

@@ -1,13 +1,13 @@
-"""YOLOv3 neck, detection heads and the single-label decode.
+"""YOLOv3 neck, detection heads, the decode and the loss.
 
 A port of `mydetection_tpu/models/yolov3.py` (`apply`, the anchor
-tables, the multi-label `decode_level` / `decode` / `scores_from` and
-`decode_single_label`). The neck runs NCHW; each raw head
-output is permuted to JAX's NHWC `(B, H, W, A*(5+C))` before it leaves
-the module, because the decode flattens it to `(B, H*W*A, 5+C)` with
-cells row-major and anchors minor — an NCHW map flattened directly would
-put every box in the wrong cell. The decode runs in float32 whatever the
-conv compute dtype.
+tables, the multi-label `decode_level` / `decode` / `scores_from`,
+`decode_single_label` and the training `loss`). The neck runs NCHW;
+each raw head output is permuted to JAX's NHWC `(B, H, W, A*(5+C))`
+before it leaves the module, because the decode flattens it to
+`(B, H*W*A, 5+C)` with cells row-major and anchors minor — an NCHW map
+flattened directly would put every box in the wrong cell. The decode
+runs in float32 whatever the conv compute dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mydetection_tpu_torch.losses import bce_with_logits
 from mydetection_tpu_torch.models.darknet import Darknet53
 from mydetection_tpu_torch.models.layers import (
     ConvBNLeaky,
@@ -25,6 +26,7 @@ from mydetection_tpu_torch.models.layers import (
     normalize_input,
     upsample2x,
 )
+from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy, pairwise_iou
 
 # Canonical YOLOv3 COCO anchors (w, h) in input pixels, paper order.
 ANCHORS = (
@@ -33,6 +35,7 @@ ANCHORS = (
     ((10, 13), (16, 30), (33, 23)),       # P3, stride 8
 )
 STRIDES = (32, 16, 8)
+IGNORE_THRES = 0.6
 TWH_CLAMP = 8.0  # exp(8)*373 ≈ 1.1e6 px — generous but finite
 
 
@@ -194,3 +197,133 @@ def decode_single_label(raw_outputs: Sequence[torch.Tensor],
     return {"boxes": torch.cat(boxes, dim=1),
             "scores": torch.cat(scores, dim=1),
             "classes": torch.cat(classes, dim=1)}
+
+
+# ---------------------------------------------------------------------------
+# loss (vectorized target assignment over padded GT)
+# ---------------------------------------------------------------------------
+
+def best_anchors(gt_wh: torch.Tensor, anchors) -> tuple[torch.Tensor, ...]:
+    """Each GT's best anchor over all nine by the IoU of their (w, h) at
+    a common origin (the union floored at 1e-9; the first maximal one on
+    ties): (level (B, M) with 0 = P5, index within the level (B, M))."""
+    table = torch.tensor([a for lvl in anchors for a in lvl],
+                         dtype=torch.float32, device=gt_wh.device)
+    gw, gh = gt_wh[..., 0:1], gt_wh[..., 1:2]
+    aw, ah = table[:, 0], table[:, 1]
+    inter = torch.minimum(gw, aw) * torch.minimum(gh, ah)
+    union = gw * gh + aw * ah - inter
+    best = torch.argmax(inter / torch.clamp(union, min=1e-9), dim=-1)
+    return best // 3, best % 3
+
+
+def scatter_targets(packed: torch.Tensor, flat_idx: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Per-GT target rows (B, M, K) → per-prediction rows (B, n, K): row
+    j of image b takes GT m's row where flat_idx[b, m] == j (n is the
+    trash slot of unassigned GT), zeros where no GT lands.
+
+    Where several GT land on one row, the last of them (the highest m)
+    wins for every channel: what the JAX loss's single `.at[].set` keeps
+    on XLA:CPU. Written as a max-scatter of the GT index and one gather,
+    so the card gives that answer too, where `index_put_` with duplicate
+    indices is nondeterministic."""
+    b, m, k = packed.shape
+    gt_idx = torch.arange(m, device=packed.device).expand(b, m)
+    winner = torch.full((b, n + 1), -1, dtype=torch.int64,
+                        device=packed.device)
+    winner.scatter_reduce_(1, flat_idx, gt_idx, reduce="amax")
+    winner = winner[:, :n]
+    rows = torch.gather(packed, 1, winner.clamp(min=0)[..., None]
+                        .expand(b, n, k))
+    return torch.where((winner >= 0)[..., None], rows, rows.new_zeros(()))
+
+
+def level_targets(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                  extra: torch.Tensor, best: tuple[torch.Tensor, ...],
+                  li: int, h: int, w: int, anchors, input_size: int
+                  ) -> torch.Tensor:
+    """Level li's targets (B, h·w·3, 6 + E) in its flat (cell, anchor)
+    order: [assigned (1 or 0), in-cell xy offsets (2), log(wh / anchor)
+    (2) with the ratio floored at 1e-9, the box weight 2 − w·h /
+    input_size², then the GT's `extra` columns (B, M, E)], zeros where
+    no GT lands. A GT takes the cell of its centre over the stride,
+    truncated toward zero and clipped, and the anchor `best`
+    (`best_anchors`) names when its level is li; one `scatter_targets`
+    moves every column, so a GT that wins a collision wins them all."""
+    na, stride = 3, STRIDES[li]
+    best_level, best_sub = best
+    cx, cy = gt_boxes[..., 0] / stride, gt_boxes[..., 1] / stride
+    ci = torch.clamp(cx.to(torch.int32), 0, w - 1)
+    cj = torch.clamp(cy.to(torch.int32), 0, h - 1)
+    flat_idx = ((cj * w + ci) * na + best_sub).to(torch.int64)
+    flat_idx = torch.where(gt_valid & (best_level == li), flat_idx,
+                           h * w * na)
+    anc = torch.tensor(anchors[li], dtype=torch.float32,
+                       device=gt_boxes.device)[best_sub]
+    t_xy = torch.stack([cx - torch.floor(cx), cy - torch.floor(cy)], -1)
+    t_wh = torch.log(torch.clamp(gt_boxes[..., 2:4] / anc, min=1e-9))
+    w_box = 2.0 - (gt_boxes[..., 2] * gt_boxes[..., 3]) \
+        / float(input_size) ** 2
+    packed = torch.cat([torch.ones_like(w_box[..., None]), t_xy, t_wh,
+                        w_box[..., None], extra], -1)
+    return scatter_targets(packed, flat_idx, h * w * na)
+
+
+def loss(raw_outputs: Sequence[torch.Tensor], gt_boxes: torch.Tensor,
+         gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+         input_size: int, num_classes: int = 80, anchors=ANCHORS) -> dict:
+    """YOLOv3 loss over padded GT, `yolov3.py::loss`: each GT goes to
+    its best wh-IoU anchor of all nine, at the cell of its centre;
+    BCE on sigmoid(t_xy) against the in-cell offset and half the squared
+    error of t_wh against log(gt_wh / anchor), both weighted by
+    2 − w·h/input_size²; BCE objectness, whose negatives drop where the
+    decoded box overlaps a valid GT by IoU > IGNORE_THRES; BCE classes
+    on the assigned predictions. obj is divided by B, box and cls by
+    max(positives, 1).
+
+    raw_outputs: [P5, P4, P3] raw (B, H, W, 3·(5+C)) maps (cast to
+    float32 per level); gt_boxes (B, M, 4) cxcywh in net pixels,
+    gt_classes (B, M) int, gt_valid (B, M) bool. Returns {"obj", "box",
+    "cls", "total"}."""
+    b = gt_classes.shape[0]
+    best = best_anchors(gt_boxes[..., 2:4], anchors)
+    with torch.no_grad():
+        pred_xyxy = cxcywh_to_xyxy(decode(raw_outputs, num_classes,
+                                          anchors=anchors)["boxes"])
+        iou = pairwise_iou(pred_xyxy, cxcywh_to_xyxy(gt_boxes))
+        iou = torch.where(gt_valid[:, None, :], iou, 0.0)
+        ignore_flat = iou.amax(-1) > IGNORE_THRES
+        del iou
+    onehot = (gt_classes[..., None] == torch.arange(
+        num_classes, device=gt_classes.device)).float()
+
+    total_obj = total_box = total_cls = num_pos = 0.0
+    offset = 0
+    for li, raw in enumerate(raw_outputs):
+        bb, h, w, _ = raw.shape
+        n = h * w * 3
+        tgt = level_targets(gt_boxes, gt_valid, onehot, best, li, h, w,
+                            anchors, input_size)
+        assigned = tgt[..., 0] > 0
+        xy_tgt, wh_tgt, wbox = tgt[..., 1:3], tgt[..., 3:5], tgt[..., 5]
+        cls_tgt = tgt[..., 6:]
+
+        flat_raw = raw.float().reshape(bb, n, 5 + num_classes)
+        ignore = ignore_flat[:, offset:offset + n]
+        obj_bce = bce_with_logits(flat_raw[..., 4], assigned.float())
+        total_obj = total_obj + (obj_bce * (assigned | ~ignore)).sum()
+        xy_bce = bce_with_logits(flat_raw[..., 0:2], xy_tgt).sum(-1)
+        wh_mse = ((flat_raw[..., 2:4] - wh_tgt) ** 2).sum(-1) * 0.5
+        total_box = total_box + ((xy_bce + wh_mse) * wbox * assigned).sum()
+        cls_bce = bce_with_logits(flat_raw[..., 5:], cls_tgt).sum(-1)
+        total_cls = total_cls + (cls_bce * assigned).sum()
+        num_pos = num_pos + assigned.sum()
+        offset += n
+
+    norm = torch.clamp(torch.as_tensor(num_pos, dtype=torch.float32),
+                       min=1.0)
+    out = {"obj": total_obj / (b if b else 1), "box": total_box / norm,
+           "cls": total_cls / norm}
+    out["total"] = out["obj"] + out["box"] + out["cls"]
+    return out

@@ -6,7 +6,8 @@ FCOS and RAPiD families: `ModelConfig` keeps the JAX package's fields,
 attribute, and `forward_dense` is the decode glue of `dense_from_raw`
 (raw heads → dense xyxy boxes with per-box or per-class scores, class
 logits for the multi-label postprocess, or rotated cxcywhθ boxes with
-scores); `loss` is the family's training loss (FCOS so far).
+scores); `loss` is the family's training loss, wired for every
+registered name as the JAX registry wires it.
 """
 
 from __future__ import annotations
@@ -166,18 +167,37 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
 
 
 def loss(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
-         gt_classes: torch.Tensor, gt_valid: torch.Tensor) -> dict:
-    """The training loss of a uint8 NHWC batch against padded GT (boxes
-    (B, M, 4) cxcywh in net pixels, classes (B, M) int, valid (B, M)
-    bool): {"cls", "box", "ctr", "total"} scalar tensors for fcos, the
-    JAX `_build_fcos.loss` terms. Run the model in train mode for
-    batch-statistics BatchNorm, as `forward_raw(train=True)` does."""
+         gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+         input_size: int | None = None) -> dict:
+    """The training loss of a uint8 NHWC batch against padded GT: boxes
+    (B, M, 4) cxcywh in net pixels (rapid: (B, M, 5) cxcywhθ, θ in
+    radians), classes (B, M) int (unused by rapid), valid (B, M) bool.
+    Scalar tensors by family, the JAX `_build_*.loss` terms: yolov3
+    {"obj", "box", "cls", "total"}, rapid {"conf", "box", "angle",
+    "total"}, retinanet {"cls", "box", "total"}, fcos {"cls", "box",
+    "ctr", "total"}. `input_size` is the darknet box weight's size, the
+    step's own input-size bucket (None: the config's). Run the model in
+    train mode for batch-statistics BatchNorm, as
+    `forward_raw(train=True)` does; the heads run without the
+    max-over-classes gate."""
     cfg = model.config
-    if cfg.family != "fcos":
-        raise NotImplementedError(
-            f"the {cfg.family} loss arrives with the port's next training "
-            f"slice (the YOLOv3 and RAPiD losses with the Darknet "
-            f"train-mode path); only fcos trains so far")
+    size = input_size or cfg.input_size
+    if cfg.family == "yolov3":
+        anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
+        return yolov3.loss(model(images), gt_boxes, gt_classes, gt_valid,
+                           input_size=size, num_classes=cfg.num_classes,
+                           anchors=anchors)
+    if cfg.family == "rapid":
+        anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
+        return rapid.loss(model(images), gt_boxes, gt_valid,
+                          input_size=size, anchors=anchors)
+    if cfg.family == "retinanet":
+        cls_logits, deltas = model(images, with_gate=False)
+        anchors = retinanet.generate_anchors(int(images.shape[1]),
+                                             images.device)
+        return retinanet.loss(cls_logits.float(), deltas, anchors, gt_boxes,
+                              gt_classes, gt_valid,
+                              num_classes=cfg.num_classes)
     cls_logits, ltrb, ctr = model(images, with_gate=False)
     locations, strides = fcos.generate_locations(int(images.shape[1]),
                                                  images.device)

@@ -10,6 +10,9 @@ weights and biases, BatchNorm and GroupNorm scales and biases, FCOS's
 per-level `scales`). BatchNorm running statistics are buffers: they
 get only the batch-statistics update, which the JAX step's
 `tree_merge` writes over its SGD update of them, so the values agree.
+`TrainStep.save` and `TrainStep.resume` write and read the JAX
+package's `.npz` checkpoints (params, the velocity as its `opt` tree,
+the step), so a run started in either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -17,7 +20,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mydetection_tpu_torch import checkpoint as ckpt_lib
 from mydetection_tpu_torch import registry
+from mydetection_tpu_torch.convert import (
+    from_jax_params,
+    model_tree,
+    to_jax_opt,
+)
 
 
 def sgd_init(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -76,20 +85,28 @@ class TrainStep:
     def batch(self, images_u8, gt_boxes, gt_classes, gt_valid
               ) -> tuple[torch.Tensor, ...]:
         """uint8 (B, S, S, 3) images with S = input_size and GT padded to
-        M boxes (numpy or tensors) → tensors on the step's device."""
+        M boxes (numpy or tensors): boxes (B, M, 4) cxcywh, or (B, M, 5)
+        cxcywhθ for a rotated model → tensors on the step's device."""
         images = torch.as_tensor(images_u8).to(self.device)
         s = self.input_size
         if images.dtype != torch.uint8 or tuple(images.shape[1:]) != (s, s, 3):
             raise ValueError(f"expected uint8 (B, {s}, {s}, 3) images, got "
                              f"{tuple(images.shape)} {images.dtype}")
-        return (images,
-                torch.as_tensor(gt_boxes, dtype=torch.float32).to(self.device),
+        boxes = torch.as_tensor(gt_boxes, dtype=torch.float32).to(self.device)
+        width = 5 if self.model.config.rotated else 4
+        if boxes.dim() != 3 or boxes.shape[-1] != width:
+            raise ValueError(f"expected (B, M, {width}) GT boxes for "
+                             f"{self.model.config.name}, got "
+                             f"{tuple(boxes.shape)}")
+        return (images, boxes,
                 torch.as_tensor(gt_classes).to(self.device, torch.int64),
                 torch.as_tensor(gt_valid).to(self.device, torch.bool))
 
     def forward(self, images, gt_boxes, gt_classes, gt_valid) -> dict:
+        """The loss terms, with the darknet box weight at the step's
+        input size."""
         return registry.loss(self.model, images, gt_boxes, gt_classes,
-                             gt_valid)
+                             gt_valid, input_size=self.input_size)
 
     def backward(self, terms: dict) -> dict[str, torch.Tensor]:
         """d total / d parameter for every parameter (zero where one
@@ -111,6 +128,39 @@ class TrainStep:
                                          gt_valid))
         self.update(self.backward(terms), lr)
         return {k: v.detach() for k, v in terms.items()}
+
+    def save(self, path: str, *, step: int | None = None,
+             extra: dict | None = None) -> None:
+        """Write the model's parameters and BN statistics, the velocity
+        (`convert.to_jax_opt`) and `step` as a JAX-format checkpoint,
+        atomically."""
+        opt = to_jax_opt(self.velocity, self.model.state_dict())
+        ckpt_lib.save_checkpoint(path, model_tree(self.model), step=step,
+                                 opt_state=ckpt_lib.unflatten_tree(opt),
+                                 extra=extra)
+
+    def resume(self, path: str) -> dict:
+        """Load a checkpoint of either package into the model and, when it
+        has an optimizer state, the velocity (its BN `mean`/`var` leaves
+        are ignored, see `convert.to_jax_opt`). The parameters are
+        checked against the model's geometry first. Returns the rest:
+        {"step", "extra", "format_version"}."""
+        ckpt = ckpt_lib.load_checkpoint(path)
+        if ckpt["params"] is None:
+            raise ValueError(f"checkpoint {path} has no params")
+        expected = model_tree(self.model)
+        ckpt_lib.check_params_compatible(expected, ckpt["params"],
+                                         context=f" '{self.model.config.name}'")
+        self.model.load_state_dict(from_jax_params(
+            ckpt_lib.flatten_tree(ckpt["params"])), strict=True)
+        if ckpt["opt"] is not None:
+            ckpt_lib.check_params_compatible(expected, ckpt["opt"],
+                                             context=" (optimizer state)")
+            opt = from_jax_params(ckpt_lib.flatten_tree(ckpt["opt"]))
+            with torch.no_grad():
+                for k, v in self.velocity.items():
+                    v.copy_(opt[k])
+        return {k: ckpt[k] for k in ("step", "extra", "format_version")}
 
 
 def make_train_step(model: nn.Module, *, input_size: int,

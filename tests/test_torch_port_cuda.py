@@ -3,14 +3,17 @@ size), bias+GroupNorm+ReLU (forward, forward with statistics, fused
 backward), rotated-NMS suppress, conv chain, row gather and fused
 bottleneck kernels against their plain versions, the CUDA Detectors
 (yolov3, fcos, rapid, retinanet, retinanet_r101) against the CPU ones,
-and the CUDA fcos train step against the CPU one. Every test skips on a host without a GPU. This
-file imports no JAX, so it runs where JAX is not installed:
+the CUDA train steps of fcos, yolov3, rapid and retinanet against the
+CPU ones, and a RetinaNet subnet's towers under autograd. Every test
+skips on a host without a GPU. This file imports no JAX, so it runs
+where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 (`--noconftest`: tests/conftest.py sets up JAX for the other files.)
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -23,6 +26,7 @@ from chip_smoke import (  # noqa: E402
     GN_GROUPS,
     OLD_LARGEST_NMS_K,
     OLD_LARGEST_ROTATED_K,
+    TRAIN_FAMILIES,
     bottleneck_case,
     bottleneck_error,
     check_parity,
@@ -71,7 +75,9 @@ from mydetection_tpu_torch.kernels.tower import (  # noqa: E402
     conv3x3_chain_plain,
     conv3x3_chain_reference,
 )
+from mydetection_tpu_torch.models.layers import init_weights  # noqa: E402
 from mydetection_tpu_torch.ops.boxes import pairwise_iou  # noqa: E402
+from mydetection_tpu_torch.registry import get_model  # noqa: E402
 
 THR = 0.45
 pytestmark = pytest.mark.cuda
@@ -480,26 +486,29 @@ def test_gn_train_kernels_reject_bad_inputs(cuda):
             bias_gn_relu_bwd.launches) == before
 
 
-def test_cuda_train_step_matches_cpu(cuda):
-    """fcos at 64², batch 2, 4 classes, float32 with TF32 off: the first
+@pytest.mark.parametrize("family", TRAIN_FAMILIES)
+def test_cuda_train_step_matches_cpu(cuda, family):
+    """Each family at 64², batch 2, float32 with TF32 off: the first
     step's loss terms, gradients, update and BN statistics within the
-    CPU tests' gates; 40 launches of each trainable GN kernel and none of
-    the inference one; the loss falls over four steps."""
+    CPU tests' gates; fcos launches each trainable GN kernel 40 times
+    and no other kernel, the others launch none (the RetinaNet towers
+    run the plain chain under autograd); the loss falls over four
+    steps."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        gpu = parity_train_run("cuda")
+        gpu = parity_train_run(family, "cuda")
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    cpu = parity_train_run("cpu")
-    compare_train_step(gpu, cpu)
-    assert gpu["launches"]["bias_gn_relu_fwd_stats"] == 40
-    assert gpu["launches"]["bias_gn_relu_bwd"] == 40
-    assert gpu["launches"]["bias_gn_relu"] == 0
-    assert gpu["launches"]["fused_bottleneck"] == 0
+    cpu = parity_train_run(family, "cpu")
+    compare_train_step(gpu, cpu, family)
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    if family == "fcos":
+        want.update(bias_gn_relu_fwd_stats=40, bias_gn_relu_bwd=40)
+    assert gpu["launches"] == want
     assert gpu["totals"][-1] < gpu["totals"][0]
 
 
@@ -610,11 +619,36 @@ def test_tower_kernel_raises_under_autograd(cuda):
     gen = torch.Generator(device=cuda).manual_seed(6)
     x, packed, biases = tower_case(gen, 1, 5, 5, torch.float32, 16)
     before = conv3x3_chain.launches
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="conv3x3_chain_plain"):
         conv3x3_chain(x.requires_grad_(), packed, biases)
     with torch.no_grad():
         conv3x3_chain(x, packed, biases)
     assert conv3x3_chain.launches == before + 1
+
+
+def test_retinanet_subnet_trains_on_the_plain_chain(cuda, no_tf32):
+    """A RetinaNet subnet under autograd on the card (float32, TF32 off,
+    channels_last) launches no chain and gives the CPU's output and the
+    CPU's gradients of its tower and output convs (1e-5 max-scaled)."""
+    model = get_model("retinanet", num_classes=4,
+                      compute_dtype=torch.float32, input_size=64)
+    init_weights(model, 0)
+    cpu = model.head.cls
+    gpu = copy.deepcopy(cpu).to(cuda, memory_format=torch.channels_last)
+    x = torch.randn(2, 256, 8, 8, generator=torch.Generator().manual_seed(8))
+    runs = []
+    for sub, xx in ((cpu, x), (gpu, x.to(cuda).contiguous(
+            memory_format=torch.channels_last))):
+        kernels.reset_launches()
+        y = sub(xx.requires_grad_(), *sub.packed(torch.float32))
+        grads = torch.autograd.grad(y.square().sum(),
+                                    [xx, *sub.parameters()])
+        runs.append((y.detach().cpu(), [g.cpu() for g in grads]))
+        assert conv3x3_chain.launches == 0
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = runs
+    assert float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max()) <= 1e-5
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
 
 
 def test_tower_kernel_rejects_bad_inputs(cuda):

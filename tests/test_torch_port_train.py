@@ -15,10 +15,11 @@ output convs by up to 5.6e-5 max-scaled, and deeper gradients by up to
 27% max-scaled (every gradient's cosine ≥ 0.9988, 3.6% relative L2
 over all parameters). The JAX step, which also takes the GroupNorm
 variance in two passes where the port takes E[x²] − E[x]², is held to
-a few times that floor. Measured against JAX: loss terms 2.2e-6
-relative, the head's output convs 7.5e-5, every gradient's cosine ≥
-0.99965 (updates 0.99942), 1.9% relative L2, BN running statistics
-1.4e-4 max-scaled.
+a few times that floor. Measured against JAX (its gradients by
+`jax.grad` of the same loss, `_torch_train_step`): loss terms 2.2e-6
+relative, the head's output convs 5.8e-5, every gradient's and
+update's cosine ≥ 0.99898, 3.5% relative L2, BN running statistics
+1.5e-4 max-scaled.
 """
 
 import numpy as np
@@ -29,33 +30,32 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_train_step import (  # noqa: E402,F401
+    jax_step_run,
+    port_step_run,
+    step_batch,
+    test_step_bn_running_stats_match_jax,
+    test_step_gradients_align_with_jax,
+    test_step_head_output_gradients_match_jax,
+    test_step_loss_terms_match_jax,
+    test_step_velocity_and_params_match_jax,
+)
 from chip_smoke import (  # noqa: E402
-    HEAD_OUT,
     PARITY_BATCH,
     PARITY_CLASSES,
     PARITY_LR,
     PARITY_SIZE,
-    TRAIN_BN_GATE,
-    TRAIN_COSINE_GATE,
-    TRAIN_HEAD_OUT_GATE,
-    TRAIN_L2_GATE,
-    TRAIN_LOSS_RTOL,
-    cosine,
     max_scaled,
-    rel_l2,
     train_batch,
 )
 from mydetection_tpu import losses as jlosses  # noqa: E402
 from mydetection_tpu import training as jtraining  # noqa: E402
-from mydetection_tpu.checkpoint import flatten_tree  # noqa: E402
 from mydetection_tpu.models import fcos as jfcos  # noqa: E402
 from mydetection_tpu.models import layers as JL  # noqa: E402
 from mydetection_tpu.ops import boxes as jboxes  # noqa: E402
-from mydetection_tpu.registry import get_model as jget_model  # noqa: E402
 from mydetection_tpu_torch import losses as tlosses  # noqa: E402
 from mydetection_tpu_torch import registry  # noqa: E402
 from mydetection_tpu_torch import training as ttraining  # noqa: E402
-from mydetection_tpu_torch.convert import from_jax_params  # noqa: E402
 from mydetection_tpu_torch.models import fcos as tfcos  # noqa: E402
 from mydetection_tpu_torch.models import layers as TL  # noqa: E402
 from mydetection_tpu_torch.ops import boxes as tboxes  # noqa: E402
@@ -317,106 +317,27 @@ def test_burn_in_lr_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# one whole train step against JAX make_train_step
+# one whole train step against JAX make_train_step (`_torch_train_step`)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
+def family():
+    return "fcos"
+
+
+@pytest.fixture(scope="module")
 def batch():
-    return train_batch(0, BATCH, SIZE, CLASSES, max_gt=100, max_boxes=20)
+    return step_batch("fcos")
 
 
 @pytest.fixture(scope="module")
 def jax_run(batch):
-    """The JAX step from the seeded init: flat float64 trees of the
-    params before and after, the velocity after, and the metrics."""
-    jm = jget_model("fcos", num_classes=CLASSES, compute_dtype=jnp.float32,
-                    input_size=SIZE)
-    params = jm.init(jax.random.PRNGKey(0))
-    step = jtraining.make_train_step(jm, input_size=SIZE)
-    p1, v1, metrics = step(params, jtraining.sgd_init(params),
-                           *map(jnp.asarray, batch), LR)
-    flat = {k: np.asarray(v) for k, v in flatten_tree(params).items()}
-
-    def port_keys(tree):
-        return {k: t.double().numpy() for k, t in from_jax_params(
-            {k: np.asarray(v) for k, v in flatten_tree(tree).items()}).items()}
-
-    return {"flat": flat, "p0": port_keys(params), "p1": port_keys(p1),
-            "v1": port_keys(v1),
-            "metrics": {k: float(v) for k, v in metrics.items()}}
+    return jax_step_run("fcos", batch)
 
 
 @pytest.fixture(scope="module")
 def port_run(jax_run, batch):
-    """The port's step from the same weights, phase by phase, keeping
-    the gradients."""
-    model = registry.get_model("fcos", num_classes=CLASSES,
-                               compute_dtype=torch.float32, input_size=SIZE)
-    model.load_state_dict(from_jax_params(jax_run["flat"]), strict=True)
-    step = ttraining.make_train_step(model, input_size=SIZE, device="cpu")
-    terms = step.forward(*step.batch(*batch))
-    grads = step.backward(terms)
-    p0 = {k: p.detach().clone() for k, p in step.params.items()}
-    step.update(grads, LR)
-    return {"terms": {k: float(v) for k, v in terms.items()},
-            "grads": {k: _np(g) for k, g in grads.items()},
-            "p0": p0, "step": step, "model": model}
-
-
-def _jax_grads(jax_run):
-    """The JAX step's gradients from its first velocity, v = g + wd·p,
-    in float64 (v started at 0)."""
-    return {k: v - 5e-4 * jax_run["p0"][k] for k, v in jax_run["v1"].items()
-            if not k.endswith((".mean", ".var"))}
-
-
-def test_step_loss_terms_match_jax(jax_run, port_run):
-    for k in ("cls", "box", "ctr", "total"):
-        assert port_run["terms"][k] == pytest.approx(
-            jax_run["metrics"][k], rel=TRAIN_LOSS_RTOL), k
-
-
-def test_step_head_output_gradients_match_jax(jax_run, port_run):
-    ref = _jax_grads(jax_run)
-    near = [k for k in ref if k.startswith(HEAD_OUT)]
-    assert len(near) == 7
-    for k in near:
-        assert _max_scaled(port_run["grads"][k], ref[k]) <= TRAIN_HEAD_OUT_GATE, k
-
-
-def test_step_gradients_align_with_jax(jax_run, port_run):
-    """Every parameter's gradient points the JAX way (cosine) and all of
-    them together lie within GLOBAL_L2_GATE relative L2."""
-    ref = _jax_grads(jax_run)
-    assert set(ref) == set(port_run["grads"])
-    worst = min((cosine(port_run["grads"][k], ref[k]), k) for k in ref)
-    assert worst[0] >= TRAIN_COSINE_GATE, worst
-    assert rel_l2(port_run["grads"], ref) <= TRAIN_L2_GATE
-
-
-def test_step_velocity_and_params_match_jax(jax_run, port_run):
-    """velocity = g + wd·p, and p1 = p0 − lr·v in place, so the update
-    carries the gradient's gates; the port's p1 is p0 − lr·v to one
-    float32 ulp."""
-    step, p0 = port_run["step"], port_run["p0"]
-    vel = {k: _np(v) for k, v in step.velocity.items()}
-    ref_v = {k: jax_run["v1"][k] for k in vel}
-    assert rel_l2(vel, ref_v) <= TRAIN_L2_GATE
-    assert min(cosine(vel[k], ref_v[k]) for k in vel) >= TRAIN_COSINE_GATE
-    delta = {k: _np(p) - _np(p0[k]) for k, p in step.params.items()}
-    ref_d = {k: jax_run["p1"][k] - jax_run["p0"][k] for k in delta}
-    assert rel_l2(delta, ref_d) <= TRAIN_L2_GATE
-    for k, p in step.params.items():
-        want = _np(p0[k]) - np.float32(LR) * vel[k]
-        np.testing.assert_allclose(_np(p), want, rtol=0,
-                                   atol=float(np.spacing(np.abs(want).max())))
-
-
-def test_step_bn_running_stats_match_jax(jax_run, port_run):
-    bufs = {k: _np(b) for k, b in port_run["model"].named_buffers()}
-    assert bufs and all(k.endswith((".mean", ".var")) for k in bufs)
-    for k, b in bufs.items():
-        assert _max_scaled(b, jax_run["p1"][k]) <= TRAIN_BN_GATE, k
+    return port_step_run("fcos", jax_run["flat"], batch)
 
 
 def test_loss_falls_over_four_steps():
@@ -446,13 +367,3 @@ def test_step_rejects_a_batch_of_another_size():
     images, *gt = train_batch(2, 1, 32, CLASSES)
     with pytest.raises(ValueError, match="uint8"):
         step(images, *gt, 1e-3)
-
-
-@pytest.mark.parametrize("name", ["yolov3", "rapid"])
-def test_darknet_losses_are_not_ported_yet(name):
-    model = registry.get_model(name, compute_dtype=torch.float32,
-                               input_size=64)
-    images, boxes, classes, valid = (torch.from_numpy(a) for a in train_batch(
-        0, 1, 64, 1, max_gt=4, max_boxes=2))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        registry.loss(model, images, boxes, classes, valid)
