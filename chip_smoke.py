@@ -80,18 +80,50 @@ Phases, one line each; any failure exits non-zero and prints no result:
               trainable GN kernels replayed on the step's own inputs;
               then the same for yolov3-416, retinanet-608 and
               rapid-1024 at batch 16 (TRAIN_MAINS), whose steps launch
-              no kernel.
+              no kernel;
+ 15. data     a synthetic COCO set in a temporary directory
+              (`write_coco_set`: 96 JPEGs, quality 90, 320-800 x 240-640,
+              1-6 filled rectangles on noise in categories 1, 3, 7, and a
+              rotated copy of the annotations); the decoder
+              `StreamingPipeline` picks (the port's native library, else
+              its build error and PIL: a host choice, reported, not
+              gated), the native first batch within 2 LSB (mean < 0.5)
+              of the PIL path's; the pipeline's img/s alone (416, batch
+              32, 4 threads, to the card) and `TrainLoader`'s (batch 16,
+              320/416/512, augmented; epoch 0 twice, bit for bit);
+ 16. evaluate `mydetection_tpu_torch.evaluate.main` in process, bf16:
+              yolov3-416, fcos-608, retinanet-608 at batch 32 and
+              rapid-1024 `--rotated` at batch 16, twice each, every
+              launch count reset before and read after (EVAL_MAINS, per
+              batch times the batches), every stat finite; the CLI's
+              img/s and the evaluator's scoring seconds; then yolov3-416
+              float32 with TF32 off on 16 images, the card against
+              `--device cpu` from one seeded .npz: rows matched one to
+              one (`match_detections`), stats within EVAL_AP_GATE;
+ 17. train cli `mydetection_tpu_torch.train.main` in process: yolov3 at
+              the default buckets (320, 416, 512), batch 16, 40
+              iterations, checkpoints at 20 and 40, validation at 40 (its
+              NMS launch the only launch), finite rows, falling loss, a
+              TensorBoard file, both checkpoints loaded into a Detector,
+              a resume to 50; fcos-608 for 6 iterations, the trainable GN
+              kernels 40 times a step each; each run's img/s beside the
+              synthetic-batch train main line of its model.
 
 Then one JSON line with a row per kernel, the card's name and power
 limit, and the result line `{"ok": true, "device": {...}}`. Needs no
-network and runs in a few minutes, the kernels' build included.
+network and runs in about six minutes, the kernels' build included.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,6 +228,40 @@ PARITY_SCORE_GATE, PARITY_BOX_GATE = 1e-4, 1e-2
 # 4.77e-4; each gate is its measurement less a margin of 0.10
 BF16_SCORE_TOL, BF16_BOX_TOL = 5e-3, 2.0
 BF16_MIN_MATCHED = {"fcos": 0.83, "retinanet": 0.71, "retinanet_r101": 0.89}
+# the synthetic COCO set of the data, evaluate and train cli phases:
+# DATA_IMAGES JPEGs (quality 90, 320-800 x 240-640) of 1-6 filled
+# rectangles on noise, in non-contiguous categories; the rotated copy's
+# boxes at DATA_ANGLE degrees (tests/test_scripts.py's rotated sets)
+DATA_IMAGES = 96
+DATA_CATEGORIES = (1, 3, 7)
+DATA_ANGLE = 20.0
+# the native decoder against the PIL path (tests/test_native.py's gates)
+NATIVE_MAX_LSB, NATIVE_MEAN_LSB = 2, 0.5
+# the evaluate CLI's paths, bf16 at its default batch (rapid at 16):
+# (name, input size, batch, rotated, kernel launches per batch)
+EVAL_MAINS = (
+    ("yolov3", 416, 32, False, {"nms_keep": 1}),
+    ("fcos", 608, 32, False, {"bias_gn_relu": 40, "fused_bottleneck": 6,
+                              "gather_rows": 1, "nms_keep": 1}),
+    ("retinanet", 608, 32, False, {"conv3x3_chain": 10, "fused_bottleneck": 6,
+                                   "gather_rows": 1, "nms_keep": 1}),
+    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1}),
+)
+EVAL_F32_IMAGES = 16        # the float32 card-vs-CPU evaluate check
+EVAL_AP_GATE = 1e-3         # its stats, absolute
+EVAL_F32_SCALE = 0.7        # its weights: the seeded init's conv kernels x 0.7
+# and its threshold: 8-17 rows an image, none at max_dets (100), where
+# near-tied scores at the cut could swap rows between the two devices
+EVAL_F32_CONF = 0.55
+# the train CLI on files: yolov3 at the default buckets, then fcos-608;
+# the burn-in of tests/test_torch_port_overfit.py's runs. Its lr, 2e-3,
+# diverged here (yolov3 total 481, 3536, 18068, then NaN at iterations
+# 10-40 on an H100): the darknet objectness loss sums over every cell,
+# so at 320-512 a step is 25-64 times what it is at that test's 64².
+# 2e-3 x (64/416)² is 5e-5; at 128² on the CPU (float32, batch 4) 1e-4
+# fell steadily where 5e-4 and 2e-3 bounced, which is 1e-5 at 416
+TRAIN_CLI_LR, TRAIN_CLI_BURN_IN = 1e-5, 10
+TRAIN_CLI_ITERS, TRAIN_CLI_RESUMED, TRAIN_CLI_FCOS_ITERS = 40, 50, 6
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +293,44 @@ def padded_canvas(img: np.ndarray, size: int, x0: int, y0: int):
     return canvas, LetterboxInfo(ori_w=w, ori_h=h, ratio=1.0,
                                  pad_x=float(x0), pad_y=float(y0),
                                  input_size=size)
+
+
+def write_coco_set(root: str, n: int = DATA_IMAGES, seed: int = 0
+                   ) -> tuple[str, str]:
+    """A synthetic COCO set in `root`, from `np.random.RandomState(seed)`:
+    n JPEGs (quality 90) of 320-800 x 240-640 noise with 1-6 filled
+    rectangles each, their boxes the annotations in DATA_CATEGORIES;
+    and a rotated copy of the annotations, [cx, cy, w, h, DATA_ANGLE].
+    Returns the two annotation files' paths."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i in range(n):
+        w, h = int(rng.randint(320, 801)), int(rng.randint(240, 641))
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        for _ in range(int(rng.randint(1, 7))):
+            bw, bh = int(rng.randint(16, w // 2)), int(rng.randint(16, h // 2))
+            x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+            img[y:y + bh, x:x + bw] = rng.randint(0, 256, 3)
+            anns.append({"id": len(anns), "image_id": i,
+                         "category_id": int(rng.choice(DATA_CATEGORIES)),
+                         "bbox": [float(x), float(y), float(bw), float(bh)],
+                         "area": float(bw * bh), "iscrowd": 0})
+        name = f"img{i:03d}.jpg"
+        Image.fromarray(img).save(os.path.join(root, name), quality=90)
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+    gt = {"images": images, "annotations": anns,
+          "categories": [{"id": c, "name": f"c{c}"} for c in DATA_CATEGORIES]}
+    rot = json.loads(json.dumps(gt))
+    for a in rot["annotations"]:
+        x, y, bw, bh = a["bbox"]
+        a["bbox"] = [x + bw / 2, y + bh / 2, bw, bh, DATA_ANGLE]
+    paths = (os.path.join(root, "ann.json"), os.path.join(root, "rot_ann.json"))
+    for path, tree in zip(paths, (gt, rot)):
+        with open(path, "w") as fh:
+            json.dump(tree, fh)
+    return paths
 
 
 def _iou32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -1978,23 +2082,342 @@ def train_main(name: str, size: int, batch: int, smi: str,
           f"backward {split[2]:.2f} ms, optimizer {split[3]:.2f} ms; peak "
           f"memory allocated {peak / 2**30:.2f} GiB; on {smi} (sm clock, "
           f"power, temp after: {clocks})", flush=True)
-    return step, data, launches
+    return step, data, launches, batch / med
 
 
 def phase_train_main(smi: str) -> dict:
     """The fcos-608 train main path at batch TRAIN_BATCH (the GN
     forward-with-statistics and backward kernels 40 each a step), then
     one more step that captures both kernels' inputs. Returns the
-    capture, {"fwd": [...], "bwd": [...], "launches"}."""
+    capture, {"fwd": [...], "bwd": [...], "launches", "img_per_s"}."""
     from mydetection_tpu_torch.training import burn_in_lr
 
-    step, data, launches = train_main(
+    step, data, launches, rate = train_main(
         "fcos", 608, TRAIN_BATCH, smi,
         {"bias_gn_relu_fwd_stats": 40, "bias_gn_relu_bwd": 40})
     captured = train_step_gn_inputs(
         step, data, burn_in_lr(TRAIN_WARMUP + TRAIN_TIMED + 1, base_lr=0.01))
-    captured["launches"] = launches
+    captured.update(launches=launches, img_per_s=rate)
     return captured
+
+
+# ---------------------------------------------------------------------------
+# the host data layer and the CLIs, from files
+# ---------------------------------------------------------------------------
+
+def read_launches() -> dict:
+    from mydetection_tpu_torch import kernels
+
+    return {fn.__name__: fn.launches for fn in kernels.KERNELS}
+
+
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    """Every kernel's count equals `want`'s (absent: 0)."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"{what} launched {launches}, expected {full}")
+
+
+def run_cli(main, args: list[str]) -> tuple[object, str, float]:
+    """A CLI's main(args) in process with every launch count reset just
+    before: (its result, its stdout, wall seconds). The output is
+    printed after the run, indented."""
+    from mydetection_tpu_torch import kernels
+
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print("  | " + "\n  | ".join(out.strip().splitlines()[-4:]), flush=True)
+    return result, out, wall
+
+
+def phase_data(root: str, smi: str) -> dict:
+    """Write the synthetic set; report the decoder StreamingPipeline
+    picks (the port's native library, or its build error and PIL); hold
+    the native first batch against the PIL path's; then the pipeline's
+    img/s alone (416, batch 32, 4 threads, with the copy to the card)
+    and TrainLoader's (batch 16, sizes 320/416/512 drawn every batch,
+    augmentation on, epoch 0 twice, bit for bit)."""
+    from mydetection_tpu_torch import native
+    from mydetection_tpu_torch.data.coco import CocoDataset
+    from mydetection_tpu_torch.data.loader import StreamingPipeline, TrainLoader
+
+    t0 = time.perf_counter()
+    ann, rot_ann = write_coco_set(root)
+    t_write = time.perf_counter() - t0
+    with open(ann) as fh:
+        paths = [os.path.join(root, im["file_name"])
+                 for im in json.load(fh)["images"]]
+    pipe = StreamingPipeline(paths, input_size=416, batch_size=BATCH,
+                             num_threads=4)
+    if pipe.decoder == "native":
+        nat = next(iter(pipe))[0]
+        pil = next(iter(StreamingPipeline(paths, input_size=416,
+                                          batch_size=BATCH, num_threads=4,
+                                          native=False)))[0]
+        diff = (nat.int() - pil.int()).abs()
+        worst, mean = int(diff.max()), float(diff.float().mean())
+        if worst > NATIVE_MAX_LSB or mean >= NATIVE_MEAN_LSB:
+            raise AssertionError(f"native decode vs PIL: max {worst} LSB, "
+                                 f"mean {mean:.4f} (gates {NATIVE_MAX_LSB}, "
+                                 f"< {NATIVE_MEAN_LSB})")
+        decoder = (f"native ({native.library_path().name}); first batch vs "
+                   f"PIL: max {worst} LSB, mean {mean:.4f}")
+    else:
+        decoder = ("PIL; the native library did not build: "
+                   + " ".join((native.build_error() or "").split())[-300:])
+
+    def pipe_pass() -> int:
+        n = sum(len(infos) for _, infos, _ in pipe)
+        torch.cuda.synchronize()
+        return n
+
+    pipe_pass()                                    # warm: page cache, pinned pool
+    t0 = time.perf_counter()
+    n = pipe_pass()
+    pipe_rate = n / (time.perf_counter() - t0)
+
+    loader = TrainLoader(CocoDataset(ann, root), batch_size=TRAIN_BATCH,
+                         sizes=(320, 416, 512), num_threads=4, rescale_every=1)
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batches = list(loader.epoch(0))
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0, batches))
+    (dt0, a), (dt1, b) = passes
+    same = len(a) == len(b) and all(
+        torch.equal(x[0], y[0]) and x[4] == y[4]
+        and all(np.array_equal(u, v) for u, v in zip(x[1:4], y[1:4]))
+        for x, y in zip(a, b))
+    if not same or a[0][0].device.type != loader.device.type:
+        raise AssertionError("TrainLoader: two passes over epoch 0 differ, or "
+                             "the images are not on the card")
+    n_img = len(a) * TRAIN_BATCH
+    loader_rate = n_img / min(dt0, dt1)
+    print(f"data: {DATA_IMAGES} JPEGs written in {t_write:.2f} s; decoder "
+          f"{decoder}; StreamingPipeline alone 416 batch {BATCH} 4 threads "
+          f"(to the card, pinned): {pipe_rate:.1f} img/s; TrainLoader alone "
+          f"batch {TRAIN_BATCH} sizes {sorted({x[4] for x in a})} "
+          f"augmented, epoch 0 ({n_img} images) twice bit for bit: "
+          f"{n_img / dt0:.1f} and {n_img / dt1:.1f} img/s; on {smi}",
+          flush=True)
+    return {"root": root, "ann": ann, "rot_ann": rot_ann,
+            "pipe_img_per_s": pipe_rate, "loader_img_per_s": loader_rate}
+
+
+def _seconds(out: str, what: str) -> float:
+    m = re.search(rf"{what}: .*?([0-9.]+)s", out)
+    return float(m.group(1)) if m else float("nan")
+
+
+def rows_to_detections(rows: list[dict], ids) -> list:
+    """COCO result rows → one `Detections` per image id (xyxy boxes,
+    category ids as classes)."""
+    from mydetection_tpu_torch.api import Detections
+
+    out = []
+    for img_id in ids:
+        mine = [r for r in rows if r["image_id"] == img_id]
+        xywh = np.asarray([r["bbox"] for r in mine], np.float64).reshape(-1, 4)
+        out.append(Detections(
+            boxes_xyxy=np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]],
+                                      axis=1),
+            scores=np.asarray([r["score"] for r in mine], np.float32),
+            classes=np.asarray([r["category_id"] for r in mine], np.int32)))
+    return out
+
+
+def nearest_text(gpu, cpu) -> str:
+    """For a failed match: the counts, and the largest distance from a
+    card detection to its nearest CPU one of its class (box px, score)."""
+    worst_box = worst_score = 0.0
+    for box, score, cls in zip(gpu.boxes_xyxy, gpu.scores, gpu.classes):
+        same = cpu.classes == cls
+        if not same.any():
+            return f"{len(gpu)} card, {len(cpu)} CPU rows; class {cls} only on the card"
+        db = np.abs(cpu.boxes_xyxy[same] - box[None]).max(axis=1)
+        j = int(np.argmin(db))
+        worst_box = max(worst_box, float(db[j]))
+        worst_score = max(worst_score, abs(float(cpu.scores[same][j] - score)))
+    return (f"{len(gpu)} card, {len(cpu)} CPU rows; nearest of its class at "
+            f"most {worst_box:.4g} px, score {worst_score:.3g}")
+
+
+def phase_evaluate(data: dict, smi: str) -> None:
+    """The evaluate CLI in process, bf16, on the synthetic set: each of
+    EVAL_MAINS with its kernels' launch counts (per batch, times the
+    batches), stats all finite; then yolov3-416 float32 (TF32 off) on
+    EVAL_F32_IMAGES images on the card against `--device cpu` from one
+    seeded .npz: rows matched one to one and tie-aware under the parity
+    gates (`match_detections`), every stat within EVAL_AP_GATE; the
+    conv kernels scaled by EVAL_F32_SCALE, so the scores spread out
+    (0.48-0.67 on these images, not all 1.0), at EVAL_F32_CONF."""
+    from mydetection_tpu_torch import Detector, evaluate
+    from mydetection_tpu_torch.checkpoint import save_checkpoint
+    from mydetection_tpu_torch.convert import model_tree
+
+    root = data["root"]
+    for name, size, batch, rotated, per_batch in EVAL_MAINS:
+        args = ["--model", name, "--img-dir", root, "--input-size", str(size),
+                "--batch-size", str(batch),
+                "--ann", data["rot_ann"] if rotated else data["ann"]]
+        runs = []
+        for _ in range(2):      # the first pays the path's first launches
+            stats, out, wall = run_cli(evaluate.main, args + (
+                ["--rotated"] if rotated else []))
+            launches = read_launches()
+            batches = -(-DATA_IMAGES // batch)
+            check_launches(f"evaluate {name}", launches,
+                           {k: v * batches for k, v in per_batch.items()})
+            if not all(np.isfinite(v) for v in stats.values()):
+                raise AssertionError(f"evaluate {name}: stats {stats}")
+            runs.append((_seconds(out, "inference"), _seconds(out, "scoring"),
+                         wall))
+        (cold, _, _), (warm, score, wall) = runs
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"evaluate: {name}-{size} bf16 batch {batch} "
+              f"({batches} batches, {DATA_IMAGES} images), twice: inference "
+              f"{cold:.3f} s ({DATA_IMAGES / cold:.1f} img/s) the first time, "
+              f"{warm:.3f} s ({DATA_IMAGES / warm:.1f} img/s) the second; "
+              f"the evaluator's scoring {score:.3f} s, main() {wall:.2f} s; "
+              f"launches each {ran}; AP {stats['AP']:.4f}, AP50 "
+              f"{stats['AP50']:.4f}; on {smi}", flush=True)
+
+    # conv kernels scaled by EVAL_F32_SCALE: at the seeded init every
+    # score is 1.0, so which of the tied rows make the top 100 turns on
+    # float32 rounding
+    npz = os.path.join(root, "yolov3_seeded.npz")
+    seeded = Detector("yolov3", num_classes=len(DATA_CATEGORIES), device="cpu",
+                      rng_seed=0)
+    with torch.no_grad():
+        for p in seeded.model.parameters():
+            if p.dim() == 4:
+                p.mul_(EVAL_F32_SCALE)
+    save_checkpoint(npz, model_tree(seeded.model))
+    args = ["--model", "yolov3", "--weights", npz, "--ann", data["ann"],
+            "--img-dir", root, "--input-size", "416", "--batch-size",
+            str(EVAL_F32_IMAGES), "--max-images", str(EVAL_F32_IMAGES),
+            "--conf-thres", str(EVAL_F32_CONF), "--float32"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out_json = os.path.join(root, f"f32_{device}.json")
+        stats, _, wall = run_cli(evaluate.main, args + [
+            "--device", device, "--out", out_json])
+        with open(out_json) as fh:
+            runs[device] = (stats, json.load(fh), wall)
+    (g_stats, g_rows, g_wall), (c_stats, c_rows, c_wall) = \
+        runs["cuda"], runs["cpu"]
+    if not c_rows:
+        raise AssertionError("evaluate float32: no detection to compare")
+    ids = range(EVAL_F32_IMAGES)
+    for i, g, c in zip(ids, rows_to_detections(g_rows, ids),
+                       rows_to_detections(c_rows, ids)):
+        if len(g) != len(c) or not match_detections(g, c, PARITY_BOX_GATE):
+            raise AssertionError(f"evaluate float32: image {i}: card rows do "
+                                 f"not match the CPU's one to one: "
+                                 f"{nearest_text(g, c)}")
+    worst = max(abs(g_stats[k] - c_stats[k]) for k in c_stats)
+    if worst > EVAL_AP_GATE:
+        raise AssertionError(f"evaluate float32: card stats {g_stats}, CPU "
+                             f"{c_stats}")
+    print(f"evaluate f32: yolov3-416 float32, TF32 off, {EVAL_F32_IMAGES} "
+          f"images at conf {EVAL_F32_CONF}, card against --device cpu from "
+          f"one seeded .npz (conv kernels x {EVAL_F32_SCALE}): "
+          f"{len(g_rows)} rows matched one to one (scores within "
+          f"{PARITY_SCORE_GATE}, boxes {PARITY_BOX_GATE} px), stats within "
+          f"{worst:.3g} (gate {EVAL_AP_GATE}); main() {g_wall:.2f} s on the "
+          f"card, {c_wall:.2f} s on the CPU", flush=True)
+
+
+def _metrics(ckpt_dir: str, name: str) -> list[dict]:
+    with open(os.path.join(ckpt_dir, f"{name}_metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def phase_train_cli(data: dict, smi: str, synthetic: dict) -> None:
+    """The train CLI in process on the synthetic set: yolov3 at the
+    default buckets (320, 416, 512), batch 16, TRAIN_CLI_ITERS
+    iterations with checkpoints every 20 and validation at the end
+    (its NMS launch the only kernel launch: the yolov3 step launches
+    none); falling loss, finite rows, the TensorBoard file, the
+    checkpoints loaded into a Detector; a resume to TRAIN_CLI_RESUMED;
+    then fcos at 608, whose steps launch the trainable GN kernels 40
+    times each. Each run's img/s beside the synthetic-batch train main
+    line of its model (`synthetic`)."""
+    from mydetection_tpu_torch import Detector, train
+    from mydetection_tpu_torch.utils.tb_writer import read_scalars
+
+    root = data["root"]
+    ck, tb = os.path.join(root, "weights"), os.path.join(root, "tb")
+    common = ["--ann", data["ann"], "--img-dir", root, "--batch-size",
+              str(TRAIN_BATCH), "--lr", str(TRAIN_CLI_LR), "--burn-in",
+              str(TRAIN_CLI_BURN_IN)]
+    yolo = ["--model", "yolov3", "--ckpt-dir", ck, "--rescale-every", "10",
+            "--log-every", "10",
+            "--ckpt-every", "20", "--val-every", str(TRAIN_CLI_ITERS),
+            "--val-max-images", "32", "--val-ann", data["ann"]]
+    last, out, wall = run_cli(train.main, common + yolo + [
+        "--iterations", str(TRAIN_CLI_ITERS), "--tensorboard-dir", tb])
+    # 32 validation images are one batch: one NMS launch
+    check_launches("train cli yolov3", read_launches(), {"nms_keep": 1})
+    rows = _metrics(ck, "yolov3")
+    steps = [r for r in rows if "total" in r]
+    vals = [r for r in rows if "val_AP" in r]
+    if (last != TRAIN_CLI_ITERS or len(steps) != TRAIN_CLI_ITERS // 10
+            or not all(np.isfinite(v) for r in steps for v in r.values())
+            or not steps[-1]["total"] < steps[0]["total"]):
+        raise AssertionError(f"train cli yolov3: rows {steps}")
+    if len(vals) != 1 or not all(np.isfinite(vals[0][k])
+                                 for k in ("val_AP", "val_AP50")):
+        raise AssertionError(f"train cli yolov3: validation rows {vals}")
+    [events] = [f for f in os.listdir(tb) if f.startswith("events.out")]
+    if not any(t == "loss/total" for _, t, _ in
+               read_scalars(os.path.join(tb, events))):
+        raise AssertionError("train cli yolov3: no loss/total in TensorBoard")
+    for it in (20, TRAIN_CLI_ITERS):
+        Detector("yolov3", weights_path=os.path.join(ck, f"yolov3_{it}.npz"),
+                 num_classes=len(DATA_CATEGORIES))
+    _, out2, wall2 = run_cli(train.main, common + yolo + [
+        "--iterations", str(TRAIN_CLI_RESUMED), "--resume",
+        os.path.join(ck, f"yolov3_{TRAIN_CLI_ITERS}.npz")])
+    if (f"at iteration {TRAIN_CLI_ITERS}" not in out2 or not os.path.exists(
+            os.path.join(ck, f"yolov3_{TRAIN_CLI_RESUMED}.npz"))):
+        raise AssertionError("train cli yolov3: the resume did not run")
+    rates = [r["img_per_sec"] for r in steps]
+    print(f"train cli: yolov3 bf16 batch {TRAIN_BATCH} from files, sizes "
+          f"{[r['size'] for r in steps]} (each row's last), lr "
+          f"{TRAIN_CLI_LR} burn-in {TRAIN_CLI_BURN_IN}: total "
+          f"{[round(r['total'], 3) for r in steps]}, img/s every 10 "
+          f"iterations {rates} (synthetic-batch train main at 416: "
+          f"{synthetic['yolov3']:.1f}); val AP {vals[0]['val_AP']:.4f} AP50 "
+          f"{vals[0]['val_AP50']:.4f}, NMS launched in validation; "
+          f"{TRAIN_CLI_ITERS} iterations in {wall:.1f} s; checkpoints 20, "
+          f"{TRAIN_CLI_ITERS} loaded into a Detector; resumed at "
+          f"{TRAIN_CLI_ITERS} to {TRAIN_CLI_RESUMED} in {wall2:.1f} s; on "
+          f"{smi}", flush=True)
+
+    fcos_ck = os.path.join(root, "weights_fcos")
+    fcos = ["--model", "fcos", "--ckpt-dir", fcos_ck, "--sizes", "608",
+            "--log-every", "3", "--iterations", str(TRAIN_CLI_FCOS_ITERS)]
+    _, _, wall = run_cli(train.main, common + fcos)
+    per_step = {"bias_gn_relu_fwd_stats": 40, "bias_gn_relu_bwd": 40}
+    check_launches("train cli fcos", read_launches(),
+                   {k: v * TRAIN_CLI_FCOS_ITERS for k, v in per_step.items()})
+    frows = _metrics(fcos_ck, "fcos")
+    if not all(np.isfinite(v) for r in frows for v in r.values()):
+        raise AssertionError(f"train cli fcos: rows {frows}")
+    print(f"train cli: fcos-608 bf16 batch {TRAIN_BATCH} from files, "
+          f"{TRAIN_CLI_FCOS_ITERS} iterations in {wall:.1f} s, the GN "
+          f"kernels {per_step} a step; total "
+          f"{[round(r['total'], 3) for r in frows]}, img/s every 3 "
+          f"iterations {[r['img_per_sec'] for r in frows]} (synthetic-batch "
+          f"train main: {synthetic['fcos']:.1f}); on {smi}", flush=True)
 
 
 @torch.no_grad()
@@ -2174,10 +2597,16 @@ def main() -> int:
     drive_main("retinanet_r101", 608, 0.005, smi, retina_launches)
     train = phase_train_main(smi)
     rows += [gn_fwd_stats_row(train), gn_bwd_row(train)]
+    synthetic = {"fcos": train["img_per_s"]}
     del train
     for name, size, batch in TRAIN_MAINS:   # no kernel runs on these
-        train_main(name, size, batch, smi, {})
+        synthetic[name] = train_main(name, size, batch, smi, {})[3]
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        data = phase_data(root, smi)
+        phase_evaluate(data, smi)
+        phase_train_cli(data, smi, synthetic)
+    torch.cuda.empty_cache()
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,8 @@ def profile_path(name: str, size: int, batch: int, smi: str,
                  out_dir: str) -> dict:
     from mydetection_tpu_torch.training import burn_in_lr
 
-    step, data, _ = train_main(name, size, batch, smi, LAUNCHES.get(name, {}))
+    step, data, *_ = train_main(name, size, batch, smi,
+                                LAUNCHES.get(name, {}))
     rows = []
     for i in range(PROFILED):
         lr = burn_in_lr(100 + i, base_lr=0.01)

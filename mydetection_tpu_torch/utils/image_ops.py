@@ -14,6 +14,9 @@ import dataclasses
 import numpy as np
 
 PAD_VALUE = 114  # gray padding, standard letterbox fill
+# decodable-by-PIL image extensions, shared by the CLIs and
+# `anchors`/evaluation so the lists cannot diverge
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 
 
 @dataclasses.dataclass(frozen=True)

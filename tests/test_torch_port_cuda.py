@@ -809,3 +809,93 @@ def test_bottleneck_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="b3"):
         fused_bottleneck(x, *f[:5], f.b3.cpu(), *f[6:])
     assert fused_bottleneck.launches == before
+
+
+# -- the host data layer and evaluation on the card -----------------------------
+
+@pytest.fixture(scope="module")
+def coco_set(tmp_path_factory):
+    from chip_smoke import write_coco_set
+
+    root = tmp_path_factory.mktemp("cuda_coco")
+    ann, _ = write_coco_set(str(root), n=10)
+    return str(root), ann
+
+
+def test_loaders_on_the_card_equal_the_cpu(cuda, coco_set):
+    """StreamingPipeline and TrainLoader batches on the card: CUDA
+    uint8 tensors equal to the CPU ones (the GT stays numpy)."""
+    import json
+    import os
+
+    from mydetection_tpu_torch.data.coco import CocoDataset
+    from mydetection_tpu_torch.data.loader import StreamingPipeline, TrainLoader
+
+    root, ann = coco_set
+    paths = [os.path.join(root, im["file_name"])
+             for im in json.load(open(ann))["images"]]
+    kw = dict(input_size=96, batch_size=4, num_threads=3, native=False)
+    gpu = list(StreamingPipeline(paths, **kw))
+    cpu = list(StreamingPipeline(paths, device="cpu", **kw))
+    assert len(gpu) == len(cpu) == 3
+    for (g, gi, gp), (c, ci, cp) in zip(gpu, cpu):
+        assert g.is_cuda and g.dtype == torch.uint8 and g.shape == (4, 96, 96, 3)
+        assert torch.equal(g.cpu(), c) and gi == ci and gp == cp
+    ds = CocoDataset(ann, root)
+    kw = dict(batch_size=4, sizes=[64, 96], rescale_every=1, seed=3,
+              num_threads=3)
+    gpu = list(TrainLoader(ds, **kw).epoch(1))
+    cpu = list(TrainLoader(ds, device="cpu", **kw).epoch(1))
+    assert len(gpu) == len(cpu) == 3
+    for g, c in zip(gpu, cpu):
+        assert g[0].is_cuda and g[0].dtype == torch.uint8
+        assert torch.equal(g[0].cpu(), c[0]) and g[4] == c[4]
+        for x, y in zip(g[1:4], c[1:4]):
+            assert isinstance(x, np.ndarray)
+            np.testing.assert_array_equal(x, y)
+
+
+def test_evaluate_detector_on_the_card_equals_the_cpu(cuda, coco_set,
+                                                      tmp_path):
+    """yolov3 at 64², float32 with TF32 off, the same seeded weights
+    (conv kernels times EVAL_F32_SCALE, so the scores are not all 1.0):
+    the card's result rows equal the CPU's under the detect parity
+    gates, one to one and tie-aware, and the stats agree."""
+    import json
+
+    from chip_smoke import (
+        EVAL_F32_SCALE,
+        PARITY_BOX_GATE,
+        match_detections,
+        rows_to_detections,
+    )
+    from mydetection_tpu_torch.convert import to_jax_params
+    from mydetection_tpu_torch.eval.evaluator import evaluate_detector
+    from mydetection_tpu_torch.evaluate import tf32_off
+
+    root, ann = coco_set
+    gt = json.load(open(ann))
+    kw = dict(input_size=64, num_classes=3, compute_dtype=torch.float32)
+    seeded = Detector("yolov3", device="cpu", rng_seed=2, **kw).model
+    params = to_jax_params({k: v * EVAL_F32_SCALE if v.dim() == 4 else v
+                            for k, v in seeded.state_dict().items()})
+    out = {}
+    with tf32_off("cuda"):
+        for device in ("cuda", "cpu"):
+            det = Detector("yolov3", device=device, params=params, **kw)
+            path = str(tmp_path / f"{device}.json")
+            before = nms_keep.launches
+            stats = evaluate_detector(det, ann, root, batch_size=4,
+                                      conf_thres=0.3, results_path=path,
+                                      verbose=False)
+            launched = nms_keep.launches - before
+            out[device] = (stats, json.load(open(path)), launched)
+    (g_stats, g_rows, g_n), (c_stats, c_rows, c_n) = out["cuda"], out["cpu"]
+    assert (g_n, c_n) == (3, 0)   # one NMS launch a batch, on the card only
+    assert len(g_rows) == len(c_rows) > 0
+    ids = [im["id"] for im in gt["images"]]
+    for g, c in zip(rows_to_detections(g_rows, ids),
+                    rows_to_detections(c_rows, ids)):
+        assert len(g) == len(c) and match_detections(g, c, PARITY_BOX_GATE)
+    for k in c_stats:
+        assert abs(g_stats[k] - c_stats[k]) <= 1e-3, (k, g_stats, c_stats)
