@@ -71,6 +71,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               count reset just before and read just after; then the
               batch's latency, img/s and device time; each kernel
               replayed on the path's own inputs for its row;
+ 13b. quant main  each int8 main path — yolov3-416, rapid-1024,
+              fcos-608, retinanet-608, retinanet_r101-608 —
+              `Detector(quantized=True)` calibrated on 8 of the canvases,
+              bf16 `detect_prepared` on 32 canvases with every launch
+              count reset just before and read just after (QUANT_MAINS:
+              fcos's towers launch the GN kernel 40 times at float32; no
+              conv chain, no fused bottleneck); the int8 img/s beside the
+              float bf16 Detector's in the same run, both forwards'
+              device ms, the int8 convs' share (im2col + `_int_mm`), the
+              largest im2col, peak memory, the calibration's seconds;
  14. train main  fcos-608 at full width and depth, bf16, batch 16,
               `make_train_step` with `burn_in_lr` on a synthetic batch:
               2 warm-up and 5 timed steps, each with its launch counts
@@ -100,6 +110,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               float32 with TF32 off on 16 images, the card against
               `--device cpu` from one seeded .npz: rows matched one to
               one (`match_detections`), stats within EVAL_AP_GATE;
+ 16b. evaluate int8  the four paths `--quantized --calib-images 8` once
+              each (EVAL_QUANT_MAINS), launch counts per batch (fcos
+              also the calibration walk's 40), every stat finite;
  17. train cli `mydetection_tpu_torch.train.main` in process: yolov3 at
               the default buckets (320, 416, 512), batch 16, 40
               iterations, checkpoints at 20 and 40, validation at 40 (its
@@ -247,6 +260,18 @@ EVAL_MAINS = (
                                    "gather_rows": 1, "nms_keep": 1}),
     ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1}),
 )
+# the evaluate CLI's int8 runs (`--quantized --calib-images
+# EVAL_CALIB_IMAGES`, one calibration batch, whose walk launches the GN
+# kernel 40 times on fcos): (name, input size, batch, rotated, kernel
+# launches per batch)
+EVAL_QUANT_MAINS = (
+    ("yolov3", 416, 32, False, {"nms_keep": 1}),
+    ("fcos", 608, 32, False, {"bias_gn_relu": 40, "gather_rows": 1,
+                              "nms_keep": 1}),
+    ("retinanet", 608, 32, False, {"gather_rows": 1, "nms_keep": 1}),
+    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1}),
+)
+EVAL_CALIB_IMAGES = 8
 EVAL_F32_IMAGES = 16        # the float32 card-vs-CPU evaluate check
 EVAL_AP_GATE = 1e-3         # its stats, absolute
 EVAL_F32_SCALE = 0.7        # its weights: the seeded init's conv kernels x 0.7
@@ -261,6 +286,18 @@ EVAL_F32_CONF = 0.55
 # 2e-3 x (64/416)² is 5e-5; at 128² on the CPU (float32, batch 4) 1e-4
 # fell steadily where 5e-4 and 2e-3 bounced, which is 1e-5 at 416
 TRAIN_CLI_LR, TRAIN_CLI_BURN_IN = 1e-5, 10
+# the int8 serving path's main runs (Detector(quantized=True)), bf16 at
+# BATCH: (name, input size, conf, kernel launches of one detect); no
+# int8 path launches the conv chain or the fused bottleneck
+QUANT_MAINS = (
+    ("yolov3", 416, 0.25, {"nms_keep": 1}),
+    ("rapid", 1024, 0.3, {"nms_from_iou_keep": 1}),
+    ("fcos", 608, 0.005, {"nms_keep": 1, "bias_gn_relu": 40,
+                          "gather_rows": 1}),
+    ("retinanet", 608, 0.005, {"nms_keep": 1, "gather_rows": 1}),
+    ("retinanet_r101", 608, 0.005, {"nms_keep": 1, "gather_rows": 1}),
+)
+QUANT_CALIB_IMAGES = 8      # main_canvases' first, letterboxed: one batch
 TRAIN_CLI_ITERS, TRAIN_CLI_RESUMED, TRAIN_CLI_FCOS_ITERS = 40, 50, 6
 
 
@@ -1585,6 +1622,174 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
     return captured
 
 
+def timed_int8_convs(fn) -> tuple[float, float, int, int, int]:
+    """One call of `fn` (an int8 forward) with every `_conv_i8` call
+    bracketed by CUDA events: (the forward's device ms, the convs' ms —
+    im2col and `torch._int_mm` — the convs' count, the largest im2col
+    matrix and the largest int32 result in bytes)."""
+    from mydetection_tpu_torch import quant, quant_resnet
+
+    calls, conv = [], quant._conv_i8
+
+    def timed(x, w, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = conv(x, w, **kw)
+        stop.record()
+        cout, kh, kw_, cin = w.shape
+        rows = out.numel() // cout
+        calls.append((start, stop, rows * kh * kw_ * cin, rows * cout * 4))
+        return out
+
+    quant._conv_i8 = quant_resnet._conv_i8 = timed
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+    finally:
+        quant._conv_i8 = quant_resnet._conv_i8 = conv
+    return (start.elapsed_time(stop),
+            sum(a.elapsed_time(b) for a, b, _, _ in calls), len(calls),
+            max(c[2] for c in calls), max(c[3] for c in calls))
+
+
+def top_device_ops(fn, n: int = 6) -> list:
+    """One call of `fn` under `torch.profiler`: the n operators with the
+    most device time of their own, [(name, ms)]."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    own = [(e.self_device_time_total / 1e3, e.key)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    return [(k, round(ms, 3)) for ms, k in sorted(own, reverse=True)[:n]]
+
+
+def peak_gib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def quant_main(name: str, size: int, conf: float, smi: str,
+               expect: dict) -> None:
+    """One int8 main path: `Detector(name, quantized=True, calib_images=
+    the first QUANT_CALIB_IMAGES canvases)` (calibrate → quantize), then
+    bf16 `detect_prepared` on BATCH canvases with every launch count
+    reset just before and read just after (each kernel in `expect`
+    exactly so often, every other none); the detections checked; then
+    the batch's img/s beside the float bf16 Detector's on the same
+    canvases, both forwards' device ms, the int8 convs' share of the
+    int8 forward (im2col and `torch._int_mm`, by CUDA events), the
+    largest im2col and int32 buffers, both forwards' peak memory; on
+    fcos, the 40 float32 GN launches replayed against their plain
+    versions."""
+    from mydetection_tpu_torch import Detector, kernels, quant, quant_resnet
+    from mydetection_tpu_torch.kernels.gn import bias_gn_relu, bias_gn_relu_plain
+    from mydetection_tpu_torch.registry import forward_dense
+
+    canvases, infos = main_canvases(size)
+    fdet = Detector(name, input_size=size, rng_seed=0)       # cuda, bf16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qdet = Detector(name, input_size=size, rng_seed=0, quantized=True,
+                    calib_images=list(canvases[:QUANT_CALIB_IMAGES]))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    qdet.warmup(batch_size=BATCH)
+    gn_calls = []
+
+    def capture_gn(x, bias, scale, shift, **kw):
+        gn_calls.append((x, bias, scale, shift))
+        return bias_gn_relu(x, bias, scale, shift, **kw)
+
+    quant_resnet.bias_gn_relu = capture_gn
+    try:
+        kernels.reset_launches()
+        dets = qdet.detect_prepared(canvases, infos, conf_thres=conf,
+                                    nms_iou=IOU_THRES)
+        launches = read_launches()
+    finally:
+        quant_resnet.bias_gn_relu = bias_gn_relu
+    check_launches(f"{name} int8 main path", launches, expect)
+    check_detections(dets, infos, name, qdet.cfg.rotated)
+    if any(x.dtype != torch.float32 for x, *_ in gn_calls):
+        raise AssertionError("the int8 towers' GN ran below float32")
+
+    def rate(det) -> float:
+        det.warmup(batch_size=BATCH)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            det.detect_prepared(canvases, infos, conf_thres=conf,
+                                nms_iou=IOU_THRES)
+            times.append(time.perf_counter() - t)
+        return BATCH / float(np.median(times))
+
+    int8_rate, bf16_rate = rate(qdet), rate(fdet)
+    images = torch.from_numpy(canvases).cuda()
+    qp, cfg = qdet._q, qdet.cfg
+    with torch.inference_mode():
+        def int8_fwd():
+            return quant.forward_dense_quantized(qp, images, cfg)
+
+        def bf16_fwd():
+            return forward_dense(fdet.model, images)
+
+        int8_ms, bf16_ms = cuda_ms(int8_fwd, 5), cuda_ms(bf16_fwd, 5)
+        fwd_ms, conv_ms, convs, cols, acc = timed_int8_convs(int8_fwd)
+        int8_gib, bf16_gib = peak_gib(int8_fwd), peak_gib(bf16_fwd)
+        top = top_device_ops(int8_fwd)
+    calib = [np.stack(canvases[:QUANT_CALIB_IMAGES])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant.quantize_model(fdet.model, calib)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    gn = ""
+    if gn_calls:
+        kernel_ms = sum(cuda_ms(lambda c=c: bias_gn_relu(*c)) for c in gn_calls)
+        plain_ms = sum(cuda_ms(lambda c=c: bias_gn_relu_plain(*c), 3)
+                       for c in gn_calls)
+        worst = max(gn_error(bias_gn_relu(*c), bias_gn_relu_plain(*c))[0]
+                    for c in gn_calls)
+        gn = (f"; its {len(gn_calls)} float32 GN launches {kernel_ms:.3f} ms "
+              f"(plain {plain_ms:.3f} ms), max error against plain "
+              f"{worst:.3g}")
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"quant main: {name}-{size} int8 detect_prepared batch {BATCH} at "
+          f"conf {conf}: {sum(len(d) for d in dets)} detections, launches "
+          f"{ran}; Detector(quantized=True) {calib_s:.2f} s (calibration on "
+          f"{QUANT_CALIB_IMAGES} canvases, float init included), "
+          f"calibrate + quantize again {warm_s:.3f} s; int8 "
+          f"{int8_rate:.1f} img/s, bf16 float {bf16_rate:.1f} img/s "
+          f"(x{int8_rate / bf16_rate:.3f}); device forward_dense int8 "
+          f"{int8_ms:.2f} ms, bf16 {bf16_ms:.2f} ms; int8 convs {convs} "
+          f"calls, {conv_ms:.2f} of {fwd_ms:.2f} ms "
+          f"({100 * conv_ms / fwd_ms:.1f}%), largest im2col {cols / 2**30:.3f}"
+          f" GiB, int32 result {acc / 2**30:.3f} GiB; peak memory int8 "
+          f"{int8_gib:.2f} GiB, bf16 {bf16_gib:.2f} GiB{gn}; the int8 "
+          f"forward's operators with the most device time of their own "
+          f"(ms): {top}; on {smi}", flush=True)
+
+
+def phase_quant(smi: str) -> None:
+    for name, size, conf, expect in QUANT_MAINS:
+        quant_main(name, size, conf, smi, expect)
+        torch.cuda.empty_cache()
+
+
 def nms_row(captured: dict, path: str) -> dict:
     """The NMS kernel at the main path's own inputs: batch 32, and the
     first image alone (B = 1, as `detect_one` sends)."""
@@ -2335,6 +2540,40 @@ def phase_evaluate(data: dict, smi: str) -> None:
           f"card, {c_wall:.2f} s on the CPU", flush=True)
 
 
+def phase_evaluate_quant(data: dict, smi: str) -> None:
+    """The evaluate CLI's int8 path on the synthetic set, bf16: each of
+    EVAL_QUANT_MAINS once with `--quantized --calib-images
+    EVAL_CALIB_IMAGES`, its kernels' launch counts (per batch, times the
+    batches; fcos also the calibration walk's 40 GN launches), every
+    stat finite."""
+    from mydetection_tpu_torch import evaluate
+
+    root = data["root"]
+    for name, size, batch, rotated, per_batch in EVAL_QUANT_MAINS:
+        args = ["--model", name, "--img-dir", root, "--input-size", str(size),
+                "--batch-size", str(batch), "--quantized", "--calib-images",
+                str(EVAL_CALIB_IMAGES),
+                "--ann", data["rot_ann"] if rotated else data["ann"]]
+        stats, out, wall = run_cli(evaluate.main, args + (
+            ["--rotated"] if rotated else []))
+        batches = -(-DATA_IMAGES // batch)
+        want = {k: v * batches for k, v in per_batch.items()}
+        if name == "fcos":      # the calibration walk's towers
+            want["bias_gn_relu"] += 40
+        launches = read_launches()
+        check_launches(f"evaluate --quantized {name}", launches, want)
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"evaluate --quantized {name}: {stats}")
+        infer = _seconds(out, "inference")
+        print(f"evaluate int8: {name}-{size} --quantized --calib-images "
+              f"{EVAL_CALIB_IMAGES} batch {batch}: inference {infer:.3f} s "
+              f"({DATA_IMAGES / infer:.1f} img/s), main() {wall:.2f} s "
+              f"(calibration included); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; AP "
+              f"{stats['AP']:.4f}, AP50 {stats['AP50']:.4f}; on {smi}",
+              flush=True)
+
+
 def _metrics(ckpt_dir: str, name: str) -> list[dict]:
     with open(os.path.join(ckpt_dir, f"{name}_metrics.jsonl")) as fh:
         return [json.loads(line) for line in fh]
@@ -2595,6 +2834,7 @@ def main() -> int:
     nms_row(retina, "retinanet")
     del retina
     drive_main("retinanet_r101", 608, 0.005, smi, retina_launches)
+    phase_quant(smi)
     train = phase_train_main(smi)
     rows += [gn_fwd_stats_row(train), gn_bwd_row(train)]
     synthetic = {"fcos": train["img_per_s"]}
@@ -2605,6 +2845,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         data = phase_data(root, smi)
         phase_evaluate(data, smi)
+        phase_evaluate_quant(data, smi)
         phase_train_cli(data, smi, synthetic)
     torch.cuda.empty_cache()
     print(json.dumps({"kernels": rows}))

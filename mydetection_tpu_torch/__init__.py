@@ -1,14 +1,15 @@
 """mydetection_tpu_torch — the PyTorch/CUDA port of mydetection_tpu.
 
 The YOLOv3, FCOS, RetinaNet and RAPiD (rotated boxes) detect and train
-paths, the data layer, COCO and rotated evaluation and the train /
-evaluate CLIs in PyTorch for an NVIDIA H100, with the JAX package's
+paths, int8 post-training quantization, the data layer, COCO and rotated
+evaluation and the train / evaluate CLIs in PyTorch for an NVIDIA H100, with the JAX package's
 eight Pallas kernels rewritten as hand-written CUDA kernels
 (`kernels/csrc/*.cu`, built with nvcc at their first launch). It imports
 nothing of JAX or of `mydetection_tpu`.
 
 Public surface:
-    Detector(model_name=..., weights_path=..., device=...)
+    Detector(model_name=..., weights_path=..., device=...,
+             quantized=False | True | "<artifact>.npz", calib_images=...)
     Detector.detect_one / detect_batch / detect_imgSeq / detect_prepared
     get_model(name) / list_models()
     training.make_train_step(model, input_size=...) / burn_in_lr

@@ -22,12 +22,19 @@ RAPiD families:
           launch for the batch) → max_dets rows + mask
   host:   strip invalid rows, inverse-letterbox to original pixels.
 
+`Detector(..., quantized=True | path)` swaps the dense forward for the
+int8 one (`quant.forward_dense_quantized`: the float prologue, int8
+convs through im2col and `torch._int_mm`, float output convs; fcos's
+towers launch the GN kernel 40 times at float32), before the same
+postprocess.
+
 The device is explicit: `Detector(..., device=None)` means "cuda" and
 raises when no GPU is present; pass `device="cpu"` to run on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Iterable, Sequence
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from mydetection_tpu_torch import checkpoint as ckpt_lib
+from mydetection_tpu_torch import quant
 from mydetection_tpu_torch import weight_import as wi
 from mydetection_tpu_torch.convert import from_jax_params, model_tree
 from mydetection_tpu_torch.models.layers import init_weights
@@ -167,6 +175,16 @@ def _conf_vector(conf_thres, n_real: int, b: int) -> np.ndarray:
     return np.concatenate([cv, np.repeat(cv[-1:], b - len(cv))])
 
 
+def _make_forward_dense(det: "Detector"):
+    """The dense forward a Detector serves: the int8 one when it was
+    built quantized, else the float model's."""
+    if det._q is not None:
+        qp, cfg = det._q, det.cfg
+        return lambda images: quant.forward_dense_quantized(qp, images, cfg)
+    model = det.model
+    return lambda images: forward_dense(model, images)
+
+
 class Detector:
     """Build a detector by name and run inference.
 
@@ -179,12 +197,17 @@ class Detector:
     darknet `.weights` file (yolov3, rapid) or a torchvision `.pt` /
     `.pth` state dict (retinanet, fcos with `ltrb_decode="linear"`);
     with neither, the weights come from `init_weights(model,
-    rng_seed)`.
+    rng_seed)`. `quantized=True` serves the int8 path calibrated on
+    `calib_images` (None: noise); `quantized="<artifact>.npz"` serves a
+    `save_quantized` artifact of either package and skips the float
+    weights unless `params` or `weights_path` is given.
     """
 
     def __init__(self, model_name: str = "yolov3",
                  weights_path: str | None = None, *, params=None,
                  rng_seed: int = 0, device: str | torch.device | None = None,
+                 quantized: bool | str = False,
+                 calib_images: Sequence | None = None,
                  **config_overrides):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -192,8 +215,33 @@ class Detector:
                                "is visible; pass device='cpu' to run on the "
                                "CPU")
         self.device = device
-        self.model = get_model(model_name, **config_overrides)
+        # served from an int8 artifact, the float weights are never
+        # read: the model is built on the meta device (no init, no
+        # memory) and only names the config
+        float_unused = isinstance(quantized, str) and params is None \
+            and weights_path is None
+        with torch.device("meta") if float_unused \
+                else contextlib.nullcontext():
+            self.model = get_model(model_name, **config_overrides)
         self.cfg = self.model.config
+        if not float_unused:
+            self._set_weights(params, weights_path, rng_seed)
+        # the opt-in int8 serving path (quant.py, quant_resnet.py): BN
+        # folded per-channel int8 weights and static activation scales
+        # from a calibration pass over `calib_images` (paths / PIL /
+        # arrays, letterboxed to the serving size; None: noise, which
+        # keeps the pipeline working but costs accuracy), or a
+        # `save_quantized` artifact's path
+        self._q = None
+        if isinstance(quantized, str):
+            self._q = quant.load_quantized(quantized, self.cfg, device=device)
+        elif quantized:
+            self._q = self._quantize(calib_images)
+        self._forward_dense = _make_forward_dense(self)
+        self._post = make_post(self.cfg)
+
+    def _set_weights(self, params, weights_path: str | None,
+                     rng_seed: int) -> None:
         if params is not None:
             if any(isinstance(v, dict) for v in params.values()):
                 params = ckpt_lib.flatten_tree(params)
@@ -203,10 +251,36 @@ class Detector:
                 self._load_weights(weights_path, rng_seed), strict=True)
         else:
             init_weights(self.model, rng_seed)
-        self.model.eval().requires_grad_(False).to(device)
-        if device.type == "cuda":  # cuDNN's NHWC convs; inputs arrive NHWC
+        self.model.eval().requires_grad_(False).to(self.device)
+        if self.device.type == "cuda":  # cuDNN's NHWC convs; NHWC inputs
             self.model.to(memory_format=torch.channels_last)
-        self._post = make_post(self.cfg)
+
+    def _quantize(self, calib_images):
+        """Calibrate and quantize the float model at the serving size:
+        one batch of the letterboxed `calib_images`, or (None) two
+        noise batches of 2 from RandomState(0)."""
+        size = self.cfg.input_size
+        if calib_images is None:
+            rng = np.random.RandomState(0)
+            batches = [rng.randint(0, 256, (2, size, size, 3), np.uint8)
+                       for _ in range(2)]
+        else:
+            if not len(calib_images):
+                raise ValueError(
+                    "calib_images is empty — pass real images to "
+                    "calibrate on, or calib_images=None for the noise "
+                    "fallback (functional but costs mAP)")
+            batches = [np.stack([letterbox_pil(load_image_any(im), size)[0]
+                                 for im in calib_images])]
+        return quant.quantize_model(self.model, batches)
+
+    def save_quantized(self, path: str) -> None:
+        """Write the calibrated int8 artifact; a later process serves it
+        with Detector(..., quantized=path), without recalibrating."""
+        if self._q is None:
+            raise ValueError("this Detector is not quantized — build it "
+                             "with quantized=True first")
+        quant.save_quantized(path, self._q, self.cfg)
 
     def _load_weights(self, path: str, rng_seed: int) -> dict:
         """A state_dict from a weights file, by its format:
@@ -275,7 +349,7 @@ class Detector:
         conf = torch.from_numpy(
             _conf_vector(conf_thres, n_real, images.shape[0])).to(self.device)
         with torch.inference_mode():
-            out = self._post(forward_dense(self.model, images), conf,
+            out = self._post(self._forward_dense(images), conf,
                              float(nms_iou))
         return {k: v.cpu().numpy() for k, v in out.items()}
 

@@ -8,7 +8,9 @@ Example:
 
 `--device` defaults to cuda (an error when no GPU is visible); pass
 `--device cpu` to evaluate on the CPU. `--rotated` scores a rotated
-model (rapid) with rotated-IoU matching (AP50, AP75).
+model (rapid) with rotated-IoU matching (AP50, AP75). `--quantized`
+evaluates the int8 path, calibrated on the first `--calib-images`
+images of `--img-dir` (sorted by path).
 """
 
 from __future__ import annotations
@@ -59,9 +61,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rotated", action="store_true",
                     help="rotated-box evaluation (fisheye datasets, "
                          "AP50/AP75 with rotated-IoU matching)")
+    ap.add_argument("--quantized", action="store_true",
+                    help="int8 static-scale PTQ serving path; calibrates "
+                         "on --calib-images images from --img-dir, then "
+                         "evaluates the quantized pipeline (diff against "
+                         "a float run to measure the PTQ mAP cost)")
+    ap.add_argument("--calib-images", type=int, default=32,
+                    help="calibration images for --quantized")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def calibration_paths(img_dir: str, n: int) -> list[str]:
+    """The first `n` images of `img_dir` (by IMAGE_EXTS, sorted by
+    path), as the JAX CLI picks them; SystemExit when there are none."""
+    import glob
+    import os
+
+    from mydetection_tpu_torch.utils.image_ops import IMAGE_EXTS
+
+    paths = sorted(p for p in glob.glob(os.path.join(img_dir, "*"))
+                   if os.path.splitext(p)[1].lower() in IMAGE_EXTS)
+    if not paths:
+        raise SystemExit(f"--quantized: no images in {img_dir} to "
+                         "calibrate on")
+    return paths[:n]
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -76,6 +101,10 @@ def main(argv: list[str] | None = None) -> dict:
         overrides["input_size"] = args.input_size
     if args.float32:
         overrides["compute_dtype"] = torch.float32
+    if args.quantized:
+        overrides["quantized"] = True
+        overrides["calib_images"] = calibration_paths(args.img_dir,
+                                                      args.calib_images)
     common = dict(conf_thres=args.conf_thres, nms_iou=args.nms_iou,
                   batch_size=args.batch_size, input_size=args.input_size,
                   max_images=args.max_images, num_threads=args.num_threads,

@@ -3,7 +3,8 @@
 A port of `mydetection_tpu/registry.py` for the YOLOv3, RetinaNet,
 FCOS and RAPiD families: `ModelConfig` keeps the JAX package's fields,
 `get_model` builds the `nn.Module` with the config on its `config`
-attribute, and `forward_dense` is the decode glue of `dense_from_raw`
+attribute, and `forward_dense` is `forward_raw` (the model's raw
+heads) then `dense_from_raw`, the decode glue the int8 forwards share
 (raw heads → dense xyxy boxes with per-box or per-class scores, class
 logits for the multi-label postprocess, or rotated cxcywhθ boxes with
 scores); `loss` is the family's training loss, wired for every
@@ -119,30 +120,38 @@ def check_input_size(size: int) -> None:
             "levels with exact 2x upsampling)")
 
 
-def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
-    """uint8 NHWC batch → the dense dict the postprocess takes, by
-    family. yolov3: boxes (B, N, 4) xyxy and, single-label, scores
-    (B, N) with classes (B, N), multi-label scores (B, N, C) = obj·cls,
-    all from the f32 decode. retinanet: boxes (B, N, 4) xyxy f32 from
-    the anchors, score_logits (B, N, C) in the compute dtype and, on
+def forward_raw(model: nn.Module, images: torch.Tensor):
+    """uint8 NHWC batch → the family's raw head outputs: yolov3 and
+    rapid [P5, P4, P3], each NHWC (B, H, W, A·no); retinanet (class
+    logits (B, N, C) in the compute dtype, deltas (B, N, 4) f32[, the
+    per-box gate]); fcos (class logits, ltrb (B, N, 4) f32 pixels, ctr
+    (B, N) f32[, gate]). The int8 forwards (`quant.forward_raw`,
+    `quant_resnet.forward_raw`) return the same layouts."""
+    return model(images)
+
+
+def dense_from_raw(raw, cfg: ModelConfig, input_size: int) -> dict:
+    """The family's raw head outputs → the dense dict the postprocess
+    takes: the one decode of the float and the int8 forwards.
+    yolov3: boxes (B, N, 4) xyxy and, single-label, scores (B, N) with
+    classes (B, N), multi-label scores (B, N, C) = obj·cls, all from the
+    f32 decode. retinanet: boxes (B, N, 4) xyxy f32 from the anchors of
+    `input_size`, score_logits (B, N, C) in the compute dtype and, on
     multi-label configs, score_gate (B, N), the max-over-classes logit.
     fcos: the same with score_mul (B, N) = sigmoid(ctr); the sigmoid of
     the class logits waits until after the postprocess's top-k. rapid:
     boxes (B, N, 5) cxcywhθ (radians) and scores (B, N), float32."""
-    cfg = model.config
     if cfg.family == "retinanet":
-        cls_logits, deltas, *gate = model(images)
-        anchors = retinanet.generate_anchors(int(images.shape[1]),
-                                             images.device)
+        cls_logits, deltas, *gate = raw
+        anchors = retinanet.generate_anchors(input_size, deltas.device)
         out = {"boxes": retinanet.decode_boxes(deltas, anchors),
                "score_logits": cls_logits}
         if gate:
             out["score_gate"] = gate[0]
         return out
     if cfg.family == "fcos":
-        cls_logits, ltrb, ctr, *gate = model(images)
-        locations, _ = fcos.generate_locations(int(images.shape[1]),
-                                               images.device)
+        cls_logits, ltrb, ctr, *gate = raw
+        locations, _ = fcos.generate_locations(input_size, ltrb.device)
         out = {"boxes": fcos.decode_boxes(ltrb, locations),
                "score_logits": cls_logits,
                "score_mul": torch.sigmoid(ctr)}
@@ -151,19 +160,25 @@ def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
         return out
     if cfg.family == "rapid":
         anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
-        decoded = rapid.decode(model(images), anchors=anchors)
+        decoded = rapid.decode(raw, anchors=anchors)
         return {"boxes": decoded["boxes5"], "scores": decoded["conf"]}
     anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
     if cfg.multi_label:
-        decoded = yolov3.decode(model(images), cfg.num_classes,
-                                anchors=anchors)
+        decoded = yolov3.decode(raw, cfg.num_classes, anchors=anchors)
         return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
                 "scores": yolov3.scores_from(decoded)}
-    decoded = yolov3.decode_single_label(model(images), cfg.num_classes,
+    decoded = yolov3.decode_single_label(raw, cfg.num_classes,
                                          anchors=anchors)
     return {"boxes": cxcywh_to_xyxy(decoded["boxes"]),
             "scores": decoded["scores"],
             "classes": decoded["classes"]}
+
+
+def forward_dense(model: nn.Module, images: torch.Tensor) -> dict:
+    """uint8 NHWC batch → the dense dict the postprocess takes, by
+    family: `dense_from_raw` of `forward_raw`."""
+    return dense_from_raw(forward_raw(model, images), model.config,
+                          int(images.shape[1]))
 
 
 def loss(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,

@@ -12,6 +12,10 @@ set:
   * a fresh run with validation plus a resume, whose checkpoint JAX's
     `checkpoint.load_checkpoint` reads and whose TensorBoard file JAX's
     `read_scalars` reads;
+  * `evaluate --quantized --calib-images 4` writes JAX's rows within
+    the int8 path's tolerance (one to one, tie-aware) and its stats
+    within 1e-3, and leaves with SystemExit on a directory without
+    images;
   * `--device` defaults to cuda (an error here), and the TPU-only
     `pack_s2d2` input layout is refused.
 
@@ -132,6 +136,84 @@ def test_evaluate_cli_equals_jax(coco_dir, tmp_path, monkeypatch, capsys,
     assert list(p_stats) == list(j_stats)
     for k in p_stats:
         assert abs(p_stats[k] - j_stats[k]) <= 1e-6, (k, p_stats, j_stats)
+
+
+def matched_rows(p_rows, j_rows, score_tol=0.02, box_atol=2.0):
+    """How many rows match one to one: same image and category, score
+    within score_tol, every box number within box_atol px."""
+    jb = np.asarray([r["bbox"] for r in j_rows], np.float64)
+    js = np.asarray([r["score"] for r in j_rows])
+    jk = np.asarray([(r["image_id"], r["category_id"]) for r in j_rows])
+    used = np.zeros(len(j_rows), bool)
+    for r in p_rows:
+        d = np.abs(jb - np.asarray(r["bbox"])[None]).max(axis=1)
+        cand = (~used & (jk == (r["image_id"], r["category_id"])).all(1)
+                & (d <= box_atol) & (np.abs(js - r["score"]) <= score_tol))
+        if cand.any():
+            used[int(np.argmin(np.where(cand, d, np.inf)))] = True
+    return int(used.sum())
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the int8 runs (see
+    `test_torch_port_quant.one_torch_thread`: six workers' torch thread
+    pools spin against each other on the host's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_evaluate_quantized_cli_equals_jax(coco_dir, tmp_path, monkeypatch,
+                                           capsys, one_torch_thread):
+    """`--quantized --calib-images 4`: both CLIs calibrate on the first
+    four images of the directory (sorted), then evaluate the int8 path.
+    Each calibrates by itself, and the int8 chain turns float32
+    differences at rounding ties into one-step moves, so the rows match
+    one to one within score 0.02 and 2 px (tie-aware) on at least 0.9
+    of them: measured 45 of 45 with torch's default threads, 44 of 45
+    (one row fewer above the cut) with one thread, whose convs sum in
+    another order; within score 1e-3 and 0.05 px only 10 match. The
+    stats within 1e-3."""
+    npz = str(tmp_path / "w.npz")
+    jckpt.save_checkpoint(npz, scaled_init("yolov3", num_classes=2))
+    args = ["--model", "yolov3", "--weights", npz, "--ann",
+            str(coco_dir / "ann.json"), "--img-dir", str(coco_dir),
+            "--input-size", "64", "--batch-size", "4", "--conf-thres", "0.3",
+            "--max-images", "5", "--float32", "--exact-topk", "--quantized",
+            "--calib-images", "4"]
+    assert p_evaluate.calibration_paths(str(coco_dir), 4) == [
+        str(coco_dir / f"img{i}.jpg") for i in range(4)]
+    p_out, j_out = str(tmp_path / "p.json"), str(tmp_path / "j.json")
+    p_stats, _ = run_port(p_evaluate.main,
+                          args + ["--out", p_out, "--device", "cpu"], capsys)
+    run_jax("evaluate", args + ["--out", j_out], monkeypatch, capsys)
+    p_rows, j_rows = json.load(open(p_out)), json.load(open(j_out))
+    from mydetection_tpu.eval.cocoeval import COCOEvaluator
+    gt = json.load(open(coco_dir / "ann.json"))
+    gt["images"] = gt["images"][:5]
+    ids = {im["id"] for im in gt["images"]}
+    gt["annotations"] = [a for a in gt["annotations"] if a["image_id"] in ids]
+    j_stats = COCOEvaluator(gt).evaluate(j_rows, verbose=False)
+    n = matched_rows(p_rows, j_rows)
+    assert len(j_rows) > 20
+    assert n >= 0.9 * max(len(p_rows), len(j_rows)), (n, len(p_rows),
+                                                      len(j_rows))
+    assert list(p_stats) == list(j_stats)
+    for k in p_stats:
+        assert abs(p_stats[k] - j_stats[k]) <= 1e-3, (k, p_stats, j_stats)
+
+
+def test_evaluate_quantized_cli_needs_images(coco_dir, tmp_path,
+                                             one_torch_thread):
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    (empty / "notes.txt").write_text("no images here")
+    with pytest.raises(SystemExit, match="no images"):
+        p_evaluate.main(["--ann", str(coco_dir / "ann.json"), "--img-dir",
+                         str(empty), "--quantized", "--device", "cpu",
+                         "--input-size", "64"])
 
 
 def _tb_rows(tb_dir):

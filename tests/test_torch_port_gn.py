@@ -213,6 +213,20 @@ def test_gn_plan_fits_and_covers(size, level, b, elem):
         assert not fwd.resident and not bwd.resident
 
 
+@pytest.mark.parametrize("size,level,b", [(size, lv, b)
+                                          for size, bs in ((608, (1, 32)),
+                                                           (128, (2,)))
+                                          for lv in range(5) for b in bs])
+def test_gn_plan_takes_the_int8_towers(size, level, b):
+    """The int8 fcos towers (`quant_resnet`) launch the forward kernel
+    on float32 (4-byte) activations at every level: at 608, batch 1 and
+    32 (the detect paths), and at 128, batch 2 (the card-vs-CPU int8
+    test); each plan fits and covers, and f32 P3 at 608 streams."""
+    h, w = _levels(size)[level]
+    plan = _check_plan("fwd", b, h * w, 256, 4)
+    assert plan.resident == (size != 608 or level != 0)
+
+
 @pytest.mark.parametrize("b,h,w,c,elem", [(3, 5, 7, 256, 2), (3, 5, 7, 256, 4),
                                           (3, 5, 7, 64, 2), (3, 5, 7, 64, 4),
                                           (1, 128, 128, 256, 2),
