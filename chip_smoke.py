@@ -122,9 +122,37 @@ Phases, one line each; any failure exits non-zero and prints no result:
               kernels 40 times a step each; each run's img/s beside the
               synthetic-batch train main line of its model.
 
+ 18. export   yolov3-416 (buckets 1 and 32), fcos-608, rapid-1024,
+              retinanet-608 and the int8 yolov3-416 (batch 32) exported
+              in bf16 on the card (`export.export_detector`: torch.export
+              programs that call the kernels as `mydet::` custom ops),
+              then loaded in a fresh process whose `registry.get_model`
+              raises (`export_child`): each path's batch-32 outputs bit
+              for bit the live Detector's, its launch counts the live
+              path's (EXPORT_MAINS); the exported and live img/s timed
+              in turn in one process (the artifact loaded there too);
+ 19. serve    the HTTP daemon (`serve.DetectionServer`) on 64 of phase
+              15's JPEGs from 8 client threads: the yolov3-416 artifact
+              (`from_artifact`, buckets 1 and 32) and a live rapid-1024
+              Detector (`from_detector`, buckets 1, 8, 32); float32 with
+              TF32 off, conv kernels x EVAL_F32_SCALE: every response
+              matched one to one (`match_rows`) to the backend run at
+              the batch shape the server gave it, within 1e-3 px, and
+              to `detect_one` on the same bytes, within 3e-3 px; fewer
+              batches than requests; then bf16:
+              requests/s, p50 and p99 latency, batches by size;
+ 20. tools    `summary` of yolov3-416 (65.86 GFLOPs an image, darknet's
+              figure, within 0.1%, and the CPU's count), fcos-608's FLOP
+              count with the kernels equal to use_pallas=False's, a
+              `trace()` of one batch, yolov3-416's `forward_dense`
+              under the profiler beside its CUDA-event time, the demo
+              CLI on 8 JPEGs, a
+              data-parallel Detector on the one card equal to the plain
+              one.
+
 Then one JSON line with a row per kernel, the card's name and power
 limit, and the result line `{"ok": true, "device": {...}}`. Needs no
-network and runs in about six minutes, the kernels' build included.
+network and runs in about ten minutes, the kernels' build included.
 """
 
 from __future__ import annotations
@@ -299,6 +327,42 @@ QUANT_MAINS = (
 )
 QUANT_CALIB_IMAGES = 8      # main_canvases' first, letterboxed: one batch
 TRAIN_CLI_ITERS, TRAIN_CLI_RESUMED, TRAIN_CLI_FCOS_ITERS = 40, 50, 6
+# the exported paths, bf16 on the card: (label, model, input size, batch
+# buckets, conf, int8, kernel launches of one batch-32 detect: the live
+# path's, as phases 13 and 13b count them)
+EXPORT_MAINS = (
+    ("yolov3", "yolov3", 416, (1, BATCH), 0.25, False, {"nms_keep": 1}),
+    ("fcos", "fcos", 608, (BATCH,), 0.005, False,
+     {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
+      "fused_bottleneck": 6}),
+    ("rapid", "rapid", 1024, (BATCH,), 0.3, False, {"nms_from_iou_keep": 1}),
+    ("retinanet", "retinanet", 608, (BATCH,), 0.005, False,
+     {"nms_keep": 1, "conv3x3_chain": 10, "gather_rows": 1,
+      "fused_bottleneck": 6}),
+    ("yolov3_int8", "yolov3", 416, (BATCH,), 0.25, True, {"nms_keep": 1}),
+)
+EXPORT_TIMED = 30           # batches timed a path, live and exported in turn
+EXPORT_CHILD_TIMEOUT = 600  # seconds for the fresh process of phase 18
+# the serving daemon: phase 15's first JPEGs from client threads, the
+# live backend's batch buckets, how long a request waits for batch-mates
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_BUCKETS = (1, 8, BATCH)
+SERVE_SIZES = {"yolov3": 416, "rapid": 1024}
+SERVE_WAIT_MS = 10.0
+# float32 responses, TF32 off, against the backend run at the batch
+# shape the server gave each request (the request's canvas in a batch of
+# its bucket): the same cuDNN algorithm, so the JSON's 4-decimal
+# rounding is the whole difference; within 1e-3 px and 1e-4
+SERVE_SCORE_GATE, SERVE_BOX_GATE = 1e-4, 1e-3
+# and against `detect_one` (a batch of 1), whose convs may take another
+# algorithm and sum in another order: on an H100 80GB HBM3 yolov3's
+# rows read up to 1.4e-3 px apart at batch 32 against 1, so 3e-3 px,
+# plus 1e-6 of a number's magnitude (a float32 ulp is 0.06 at rapid's
+# seeded widths of up to 1e6 px)
+SERVE_ONE_BOX_GATE, SERVE_ONE_BOX_RTOL = 3e-3, 1e-6
+SERVE_RAPID_F32_CONF = 0.3
+DARKNET_YOLOV3_416_GFLOPS = 65.86   # darknet's yolov3.cfg at 416: 65.86 BFLOPs
+DEMO_IMAGES = 8
 
 
 # ---------------------------------------------------------------------------
@@ -2790,6 +2854,586 @@ def gn_bwd_row(captured: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# export, serve and the tools
+# ---------------------------------------------------------------------------
+
+def seconds_of(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profiled(fn) -> dict:
+    """One `fn()` under the profiler: the operators the host ran, and
+    the card's own events (kernels, copies, sets) with their summed
+    duration, each counted once (an operator's self device time repeats
+    the kernels it launched)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    return {"host_ops": len(events) - len(device),
+            "device_events": len(device),
+            "device_ms": sum(e.device_time_total for e in device) / 1e3}
+
+
+def interleaved_batch_s(a, b, runs: int = EXPORT_TIMED
+                        ) -> tuple[float, float]:
+    """Median host-clock seconds of `a()` and of `b()` (each returns
+    host arrays, so it waits for the card), timed in turn in one process
+    (a b, b a, a b, ...) so that both see the same host."""
+    times = ([], [])
+    for r in range(runs):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            times[k].append(seconds_of((a, b)[k]))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def export_live(work: str, smi: str) -> dict:
+    """Phase 18's first half: each of EXPORT_MAINS built and warmed up,
+    exported (bf16, on the card) into `work`, its live padded outputs on
+    the path's BATCH canvases saved beside the artifact; then the
+    artifact loaded in this process too and the live and exported
+    batches timed in turn (`interleaved_batch_s`), whole (`detect_prepared`
+    from host canvases) and as the programs alone (the live dense
+    forward and postprocess, the exported program, on a batch already
+    on the card). Returns per path its export seconds, both img/s, the
+    programs' ms, one profiled batch of each and the ops its programs
+    call."""
+    from mydetection_tpu_torch import Detector
+    from mydetection_tpu_torch.export import export_detector, load_exported
+
+    out = {}
+    for label, name, size, buckets, conf, int8, want in EXPORT_MAINS:
+        canvases, infos = main_canvases(size)
+        kw = (dict(quantized=True,
+                   calib_images=list(canvases[:QUANT_CALIB_IMAGES]))
+              if int8 else {})
+        det = Detector(name, input_size=size, rng_seed=0, **kw)
+        det.warmup(batch_size=BATCH)
+        t0 = time.perf_counter()
+        meta = export_detector(det, os.path.join(work, f"{label}.npz"),
+                               batch_size=buckets)
+        export_s = time.perf_counter() - t0
+        if meta["custom_ops"] != sorted(f"mydet::{k}" for k in want):
+            raise AssertionError(f"export {label}: its programs call "
+                                 f"{meta['custom_ops']}, the live path "
+                                 f"launches {sorted(want)}")
+        live = det._run_batch(canvases, conf, det.cfg.nms_iou, BATCH)
+        np.savez(os.path.join(work, f"{label}_live.npz"), **live)
+        served = load_exported(os.path.join(work, f"{label}.npz"))
+        served.warmup()
+        live_s, exported_s = interleaved_batch_s(
+            lambda: det.detect_prepared(canvases, infos, conf_thres=conf),
+            lambda: served.detect_prepared(canvases, infos,
+                                           conf_thres=conf))
+        # the programs alone on a batch already on the card: the live
+        # dense forward and postprocess against the exported program
+        images = torch.from_numpy(canvases).cuda()
+        conf_t = torch.full((BATCH,), conf, device="cuda")
+        call = served._calls[(size, BATCH)]
+
+        def live_program():
+            with torch.inference_mode():
+                det._post(det._forward_dense(images), conf_t,
+                          det.cfg.nms_iou)
+
+        def exported_program():
+            with torch.inference_mode():
+                call(served.params, images, conf_t)
+
+        programs_s = interleaved_batch_s(live_program, exported_program)
+        out[label] = {"export_s": export_s, "live_img_per_s": BATCH / live_s,
+                      "exported_img_per_s": BATCH / exported_s,
+                      "programs_ms": [t * 1e3 for t in programs_s],
+                      "live_profile": profiled(lambda: det.detect_prepared(
+                          canvases, infos, conf_thres=conf)),
+                      "exported_profile": profiled(
+                          lambda: served.detect_prepared(
+                              canvases, infos, conf_thres=conf)),
+                      "custom_ops": meta["custom_ops"],
+                      "detections": int(live["valid"].sum())}
+        del det, served, images
+        torch.cuda.empty_cache()
+    return out
+
+
+def export_child(work: str) -> int:
+    """Phase 18's second half, in a fresh process whose
+    `registry.get_model` raises: each artifact of EXPORT_MAINS loaded,
+    warmed up, then one batch-32 detect on the path's canvases with
+    every launch count reset just before and read just after, its
+    padded outputs against the live ones saved in `work` (bit for bit).
+    One JSON line a path."""
+    from mydetection_tpu_torch import api, kernels, registry
+    from mydetection_tpu_torch.export import load_exported
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("registry.get_model was called while serving "
+                             "an artifact")
+
+    registry.get_model = api.get_model = refuse
+    for label, name, size, buckets, conf, int8, want in EXPORT_MAINS:
+        t0 = time.perf_counter()
+        served = load_exported(os.path.join(work, f"{label}.npz"))
+        load_s = time.perf_counter() - t0
+        canvases, _ = main_canvases(size)
+        served.warmup()
+        kernels.reset_launches()
+        got = served._run(canvases, conf)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with np.load(os.path.join(work, f"{label}_live.npz")) as z:
+            live = {k: z[k] for k in z.files}
+        same = {k: bool(np.array_equal(got[k], live[k])) for k in live}
+        valid = live["valid"] & got["valid"]
+        print(json.dumps({
+            "label": label, "load_s": load_s, "launches": launches,
+            "bit_equal": same,
+            "max_score_diff": float(np.abs(got["scores"] - live["scores"])
+                                    [valid].max(initial=0.0)),
+            "max_box_diff": float(np.abs(got["boxes"] - live["boxes"])
+                                  [valid].max(initial=0.0))}), flush=True)
+    return 0
+
+
+def phase_export(work: str, smi: str) -> None:
+    """Phase 18: EXPORT_MAINS exported on the card, then loaded and run
+    in a fresh process that cannot build a model (`export_child`); each
+    exported path bit-equal to the live one, launching exactly its
+    kernels (the live path's counts, phases 13 and 13b); the exported
+    and live img/s timed in turn in this process (`export_live`)."""
+    live = export_live(work, smi)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys, chip_smoke; sys.exit(chip_smoke.export_child({work!r}))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=EXPORT_CHILD_TIMEOUT)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export child failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rows = {r["label"]: r for r in map(json.loads, proc.stdout.splitlines())
+            if r}
+    for label, name, size, buckets, conf, int8, want in EXPORT_MAINS:
+        r, lv = rows[label], live[label]
+        check_launches(f"exported {label}", r["launches"], want)
+        if not all(r["bit_equal"].values()):
+            raise AssertionError(
+                f"exported {label} differs from the live Detector: equal "
+                f"{r['bit_equal']}, scores by {r['max_score_diff']:.3g}, "
+                f"boxes by {r['max_box_diff']:.3g} px")
+        print(f"export: {label}-{size} bf16 buckets {list(buckets)}: "
+              f"exported in {lv['export_s']:.1f} s (ops "
+              f"{lv['custom_ops']}), loaded in a fresh process without "
+              f"model code in {r['load_s']:.1f} s; batch {BATCH} at conf "
+              f"{conf}: {lv['detections']} detections, every output bit "
+              f"for bit the live Detector's, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; "
+              f"{lv['exported_img_per_s']:.1f} img/s exported, "
+              f"{lv['live_img_per_s']:.1f} img/s live, exported / live "
+              f"{lv['exported_img_per_s'] / lv['live_img_per_s']:.3f} "
+              f"(medians of {EXPORT_TIMED} batches each, timed in turn in "
+              f"one process, host clock); the programs alone on a batch "
+              f"already on the card, live / exported: "
+              f"{lv['programs_ms'][0]:.2f} / {lv['programs_ms'][1]:.2f} ms "
+              f"(medians, timed in turn); one batch under the profiler, "
+              f"live / exported: {lv['live_profile']['host_ops']} / "
+              f"{lv['exported_profile']['host_ops']} host operators, "
+              f"{lv['live_profile']['device_events']} / "
+              f"{lv['exported_profile']['device_events']} device events, "
+              f"{lv['live_profile']['device_ms']:.2f} / "
+              f"{lv['exported_profile']['device_ms']:.2f} ms of device "
+              f"time; on {smi}", flush=True)
+    print(f"export: the fresh process took {child_s:.1f} s in all; on {smi}",
+          flush=True)
+
+
+def post_json(url: str, body: bytes) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def serve_burst(srv, bodies: list[bytes], conf: float) -> tuple[list, float,
+                                                                 dict]:
+    """Start `srv` on a free port, send every body from SERVE_CLIENTS
+    threads (client i sends bodies i, i + SERVE_CLIENTS, ...), stop it.
+    Returns (the responses in body order, the burst's wall seconds, the
+    server's /stats)."""
+    import threading
+
+    ready = threading.Event()
+    server = threading.Thread(target=srv.serve, daemon=True,
+                              kwargs={"port": 0, "ready_event": ready})
+    server.start()
+    try:
+        if not ready.wait(600):
+            raise AssertionError("the server did not warm up")
+        base = f"http://127.0.0.1:{srv.port}"
+        results, errors = [None] * len(bodies), []
+
+        def client(i):
+            try:
+                for j in range(i, len(bodies), SERVE_CLIENTS):
+                    results[j] = post_json(f"{base}/detect?conf_thres={conf}",
+                                           bodies[j])
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = get_json(f"{base}/stats")
+    finally:
+        srv.shutdown()
+        server.join(timeout=60)
+    if errors or any(r is None for r in results) or server.is_alive():
+        raise AssertionError(f"serve: {len(errors)} requests failed: "
+                             f"{errors[:2]}")
+    return results, wall, stats
+
+
+def match_rows(got: np.ndarray, want: np.ndarray, rotated: bool,
+               box_gate: float, box_rtol: float = 0.0
+               ) -> tuple[bool, float, float]:
+    """One-to-one match of response rows to reference rows: (x1, y1, x2,
+    y2, score, cls) with the class equal, or rotated (cx, cy, w, h, deg,
+    score); scores within SERVE_SCORE_GATE, every box number within
+    `box_gate` plus `box_rtol` of its magnitude. Returns (matched, the
+    largest box and score differences seen)."""
+    got, want = got.reshape(-1, 6), want.reshape(-1, 6)
+    nbox, col = (5, 5) if rotated else (4, 4)
+    if len(got) != len(want):
+        return False, float("inf"), float("inf")
+    used = np.zeros(len(want), bool)
+    worst_box = worst_score = 0.0
+    for row in got:
+        db = np.abs(want[:, :nbox] - row[None, :nbox])
+        ds = np.abs(want[:, col] - row[col])
+        ok = (~used & (db <= box_gate + box_rtol
+                       * np.abs(want[:, :nbox])).all(axis=1)
+              & (ds <= SERVE_SCORE_GATE))
+        if not rotated:
+            ok &= want[:, 5] == row[5]
+        if not ok.any():
+            return False, float(db.max(axis=1).min()), float(ds.min())
+        j = int(np.argmin(np.where(ok, db.max(axis=1), np.inf)))
+        used[j] = True
+        worst_box = max(worst_box, float(db[j].max()))
+        worst_score = max(worst_score, float(ds[j]))
+    return True, worst_box, worst_score
+
+
+def digest(canvas: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(canvas).tobytes()).hexdigest()
+
+
+def record_buckets(srv) -> dict:
+    """Wrap `srv`'s backend so that each batch notes the bucket it ran
+    at under the digest of each real canvas; returns that dict, which
+    fills as the server runs."""
+    bucket_of = {}
+    inner = srv.backend.detect_prepared
+
+    def detect_prepared(canvases, infos, **kw):
+        for c in canvases[:len(infos)]:
+            bucket_of[digest(c)] = int(canvases.shape[0])
+        return inner(canvases, infos, **kw)
+
+    srv.backend.detect_prepared = detect_prepared
+    return bucket_of
+
+
+def same_shape_references(backend, bodies: list[bytes], size: int,
+                          bucket_of: dict, conf: float) -> list:
+    """Each body's detections from `backend` at the batch shape the
+    server ran it at: the body decoded and letterboxed as the server
+    does (PIL), the canvases of one bucket run in batches of it, the
+    last padded by repeating its last canvas, as the server pads."""
+    from PIL import Image
+
+    from mydetection_tpu_torch.utils.image_ops import letterbox_pil
+
+    prepared = [letterbox_pil(Image.open(io.BytesIO(b)), size)
+                for b in bodies]
+    buckets = [bucket_of.get(digest(c)) for c, _ in prepared]
+    if None in buckets:
+        raise AssertionError(f"serve: request {buckets.index(None)}'s canvas "
+                             f"is not one the server ran")
+    refs = [None] * len(bodies)
+    for bucket in sorted(set(buckets)):
+        idx = [i for i, b in enumerate(buckets) if b == bucket]
+        for at in range(0, len(idx), bucket):
+            chunk = idx[at:at + bucket]
+            canvases = np.stack([prepared[i][0] for i in chunk])
+            if len(chunk) < bucket:
+                canvases = np.concatenate([canvases, np.repeat(
+                    canvases[-1:], bucket - len(chunk), axis=0)])
+            dets = backend.detect_prepared(
+                canvases, [prepared[i][1] for i in chunk], conf_thres=conf)
+            for i, d in zip(chunk, dets):
+                refs[i] = d.as_array()
+    return refs
+
+
+def scaled_detector(name: str, size: int, **kw):
+    """A Detector of the seeded init with every conv kernel scaled by
+    EVAL_F32_SCALE: unsaturated scores, so rows that tie at 1.0 do not
+    change places between two batch shapes."""
+    from mydetection_tpu_torch import Detector
+
+    det = Detector(name, input_size=size, rng_seed=0, **kw)
+    with torch.no_grad():
+        for p in det.model.parameters():
+            if p.dim() == 4:
+                p.mul_(EVAL_F32_SCALE)
+    return det
+
+
+def phase_serve(work: str, data: dict, smi: str) -> None:
+    """Phase 19: the serving daemon on SERVE_REQUESTS of phase 15's JPEGs
+    from SERVE_CLIENTS client threads, two backends: the yolov3-416
+    artifact (`from_artifact`, buckets 1 and 32) and a live rapid-1024
+    Detector (`from_detector`, SERVE_BUCKETS). First float32 with TF32
+    off, conv kernels scaled by EVAL_F32_SCALE: every response matched
+    one to one (`match_rows`) to the backend run on the same canvas at
+    the batch shape the server ran it at (`record_buckets`,
+    `same_shape_references`), and to `detect_one` on the same bytes,
+    whose batch of 1 may take another cuDNN algorithm than a coalesced
+    batch of 8 or 32 (the looser SERVE_ONE_BOX_GATE); /stats showing
+    fewer batches than requests; then
+    the rates with bf16 backends (phase 18's artifact, the seeded rapid)
+    on the same requests: requests/s, p50 and p99 latency, batches by
+    size and occupancy."""
+    from PIL import Image
+
+    from mydetection_tpu_torch.evaluate import tf32_off
+    from mydetection_tpu_torch.export import export_detector
+    from mydetection_tpu_torch.serve import DetectionServer
+
+    with open(data["ann"]) as fh:
+        names = [im["file_name"] for im in json.load(fh)["images"]]
+    bodies = []
+    for name in names[:SERVE_REQUESTS]:
+        with open(os.path.join(data["root"], name), "rb") as fh:
+            bodies.append(fh.read())
+    f32 = os.path.join(work, "yolov3_f32.npz")
+    with tf32_off("cuda"):
+        det = scaled_detector("yolov3", SERVE_SIZES["yolov3"],
+                              compute_dtype=torch.float32)
+        export_detector(det, f32, batch_size=(1, BATCH))
+        del det
+        checks = (("yolov3-416 artifact", False, EVAL_F32_CONF,
+                   lambda: DetectionServer.from_artifact(
+                       f32, max_wait_ms=SERVE_WAIT_MS, use_native=False)),
+                  ("rapid-1024 live", True, SERVE_RAPID_F32_CONF,
+                   lambda: DetectionServer.from_detector(
+                       scaled_detector("rapid", SERVE_SIZES["rapid"],
+                                       compute_dtype=torch.float32),
+                       batch_buckets=list(SERVE_BUCKETS),
+                       max_wait_ms=SERVE_WAIT_MS, use_native=False)))
+        for what, rotated, conf, make in checks:
+            srv = make()
+            bucket_of = record_buckets(srv)
+            responses, wall, stats = serve_burst(srv, bodies, conf)
+            size = SERVE_SIZES["rapid" if rotated else "yolov3"]
+            refs = same_shape_references(srv.backend, bodies, size,
+                                         bucket_of, conf)
+            worst = {"shape": [0.0, 0.0], "one": [0.0, 0.0]}
+            rows = 0
+            for i, (body, r, ref) in enumerate(zip(bodies, responses, refs)):
+                got = np.asarray(r["detections"])
+                one = srv.backend.detect_one(
+                    pil_img=Image.open(io.BytesIO(body)),
+                    conf_thres=conf).as_array()
+                for key, want, gate, rtol in (
+                        ("shape", ref, SERVE_BOX_GATE, 0.0),
+                        ("one", one, SERVE_ONE_BOX_GATE,
+                         SERVE_ONE_BOX_RTOL)):
+                    ok, db, ds = match_rows(got, want, rotated, gate, rtol)
+                    if not ok:
+                        run = ("same batch shape" if key == "shape"
+                               else "detect_one")
+                        raise AssertionError(
+                            f"serve f32 {what}: request {i}: {r['n']} rows "
+                            f"against {len(want)} of the {run} run; "
+                            f"nearest box {db:.4g}, score {ds:.3g}")
+                    worst[key] = [max(worst[key][0], db),
+                                  max(worst[key][1], ds)]
+                rows += len(ref)
+            if rows == 0:
+                raise AssertionError(f"serve f32 {what}: no detection at "
+                                     f"conf {conf} to compare")
+            if not 0 < stats["batches"] < stats["requests"]:
+                raise AssertionError(f"serve f32 {what}: {stats['batches']} "
+                                     f"batches for {stats['requests']} "
+                                     f"requests")
+            print(f"serve f32: {what}, float32 TF32 off, conv kernels x "
+                  f"{EVAL_F32_SCALE}, conf {conf}: {SERVE_REQUESTS} JPEG "
+                  f"requests from {SERVE_CLIENTS} threads, {rows} rows each "
+                  f"matched one to one to the backend run at the request's "
+                  f"batch shape (largest box difference "
+                  f"{worst['shape'][0]:.3g}, score {worst['shape'][1]:.3g}; "
+                  f"gates {SERVE_BOX_GATE} px, {SERVE_SCORE_GATE}) and to "
+                  f"detect_one on the same bytes (box {worst['one'][0]:.3g}, "
+                  f"score {worst['one'][1]:.3g}; gates {SERVE_ONE_BOX_GATE} "
+                  f"+ {SERVE_ONE_BOX_RTOL:g} x |value| px, "
+                  f"{SERVE_SCORE_GATE}); {stats['batches']} batches by size "
+                  f"{stats['batches_by_size']}; on {smi}", flush=True)
+            del srv
+            torch.cuda.empty_cache()
+
+    from mydetection_tpu_torch import Detector
+
+    rates = (("yolov3-416 artifact", 0.25,
+              lambda: DetectionServer.from_artifact(
+                  os.path.join(work, "yolov3.npz"),
+                  max_wait_ms=SERVE_WAIT_MS)),
+             ("rapid-1024 live", 0.3,
+              lambda: DetectionServer.from_detector(
+                  Detector("rapid", input_size=SERVE_SIZES["rapid"],
+                           rng_seed=0),
+                  batch_buckets=list(SERVE_BUCKETS),
+                  max_wait_ms=SERVE_WAIT_MS)))
+    for what, conf, make in rates:
+        srv = make()
+        decoder = "native" if srv.use_native else "PIL"
+        _, wall, stats = serve_burst(srv, bodies, conf)
+        lat = stats["latency_ms"]
+        print(f"serve bf16: {what}, conf {conf}, {decoder} decode: "
+              f"{SERVE_REQUESTS} JPEG requests from {SERVE_CLIENTS} threads "
+              f"in {wall:.3f} s: {SERVE_REQUESTS / wall:.1f} requests/s, "
+              f"latency p50 {lat['p50']} ms, p99 {lat['p99']} ms; "
+              f"{stats['batches']} batches (by size "
+              f"{stats['batches_by_size']}), {stats['mean_images_per_batch']} "
+              f"images a batch, bucket occupancy {stats['bucket_occupancy']}; "
+              f"on {smi}", flush=True)
+        del srv
+        torch.cuda.empty_cache()
+
+
+def phase_tools(data: dict, smi: str) -> None:
+    """Phase 20: `summary` of yolov3-416 on the card (GFLOPs an image
+    within 0.1% of darknet's 65.86 and equal to the CPU's count, 62.00 M
+    parameters); fcos-608's FLOP count with the kernels equal to
+    use_pallas=False's; a `trace()` of one yolov3-416 bf16 batch and
+    its `forward_dense`'s kernel time under the profiler beside the
+    CUDA-event time; the demo CLI on DEMO_IMAGES of phase 15's JPEGs; a
+    data-parallel
+    Detector on the one card equal to the plain one."""
+    import shutil
+
+    from mydetection_tpu_torch import Detector, demo
+    from mydetection_tpu_torch.registry import forward_dense
+    from mydetection_tpu_torch.summary import summarize
+    from mydetection_tpu_torch.utils.profiling import TRACE_FILE, trace
+    from mydetection_tpu_torch.utils.visualization import has_cv2
+
+    card = summarize("yolov3", input_size=416)
+    cpu = summarize("yolov3", input_size=416, device="cpu")
+    gf = card["gflops_per_image"]
+    if abs(gf / DARKNET_YOLOV3_416_GFLOPS - 1) > 1e-3 \
+            or gf != cpu["gflops_per_image"] \
+            or card["params"] != cpu["params"]:
+        raise AssertionError(f"summary yolov3-416: card {card}, CPU {cpu}")
+    fk = summarize("fcos", input_size=608)["gflops_per_image"]
+    fp = summarize("fcos", input_size=608,
+                   use_pallas=False)["gflops_per_image"]
+    if fk != fp:
+        raise AssertionError(f"fcos-608 GFLOPs: {fk} with the kernels, {fp} "
+                             f"with use_pallas=False")
+    print(f"tools summary: yolov3-416 {gf:.4f} GFLOPs an image on the card "
+          f"and on the CPU (darknet: {DARKNET_YOLOV3_416_GFLOPS}), "
+          f"{card['params'] / 1e6:.2f} M parameters with BN statistics "
+          f"{card['params_by_module']}; fcos-608 {fk:.4f} GFLOPs with the "
+          f"kernels and with use_pallas=False; on {smi}", flush=True)
+
+    canvases, infos = main_canvases(416)
+    det = Detector("yolov3", input_size=416, rng_seed=0)
+    det.warmup(batch_size=BATCH)
+    from torch.autograd import DeviceType
+
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir) as prof:
+            det.detect_prepared(canvases, infos, conf_thres=0.25)
+        size = os.path.getsize(os.path.join(logdir, TRACE_FILE))
+    device_ms = sum(e.device_time_total for e in prof.events()
+                    if e.device_type != DeviceType.CPU) / 1e3
+    print(f"tools trace: one yolov3-416 bf16 batch of {BATCH}: "
+          f"{len(prof.events())} events, {size / 1e6:.1f} MB of Chrome "
+          f"trace, {device_ms:.2f} ms of device time (the card's own "
+          f"events summed); on {smi}", flush=True)
+    # the forward's own kernel time beside phase 13's CUDA-event reading,
+    # which paces with the host when its launches outrun the sleep ahead
+    images = torch.from_numpy(canvases).cuda()
+    with torch.inference_mode():
+        event_ms = cuda_ms(lambda: forward_dense(det.model, images), 5)
+        fwd = profiled(lambda: forward_dense(det.model, images))
+    print(f"tools forward: yolov3-416 bf16 forward_dense batch {BATCH}: "
+          f"{fwd['device_ms']:.2f} ms of device time under the profiler "
+          f"({fwd['device_events']} device events, {fwd['host_ops']} host "
+          f"operators), {event_ms:.2f} ms by CUDA events (phase 13's "
+          f"timing, mean of 5); on {smi}", flush=True)
+    del images
+
+    dp = Detector("yolov3", input_size=416, rng_seed=0, data_parallel=True)
+    want = det._run_batch(canvases, 0.25, det.cfg.nms_iou, BATCH)
+    got = dp._run_batch(canvases, 0.25, dp.cfg.nms_iou, BATCH)
+    if dp._replicas is not None or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("data_parallel=True on one card differs from "
+                             "the plain Detector")
+    print(f"tools data_parallel: {torch.cuda.device_count()} card: the "
+          f"single-device path, {int(got['valid'].sum())} detections bit "
+          f"for bit the plain Detector's; on {smi}", flush=True)
+    del det, dp
+    torch.cuda.empty_cache()
+
+    with open(data["ann"]) as fh:
+        names = [im["file_name"] for im in json.load(fh)["images"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for name in names[:DEMO_IMAGES]:
+            shutil.copy(os.path.join(data["root"], name), src)
+        result, text, wall = run_cli(demo.main, [
+            "--model", "yolov3", "--input", src, "--out-dir", out,
+            "--input-size", "416"])
+        saved = sorted(os.listdir(out))
+    if len(result) != DEMO_IMAGES or len(saved) != DEMO_IMAGES:
+        raise AssertionError(f"demo saved {saved}")
+    print(f"tools demo: {DEMO_IMAGES} JPEGs in {wall:.2f} s, "
+          f"{len(saved)} renders saved; cv2 "
+          f"{'drew them' if has_cv2() else 'is not installed: unmarked copies'}"
+          f"; on {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2847,6 +3491,11 @@ def main() -> int:
         phase_evaluate(data, smi)
         phase_evaluate_quant(data, smi)
         phase_train_cli(data, smi, synthetic)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as work:
+            phase_export(work, smi)
+            phase_serve(work, data, smi)
+        phase_tools(data, smi)
     torch.cuda.empty_cache()
     print(json.dumps({"kernels": rows}))
     print(smi)

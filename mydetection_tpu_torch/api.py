@@ -26,7 +26,11 @@ RAPiD families:
 int8 one (`quant.forward_dense_quantized`: the float prologue, int8
 convs through im2col and `torch._int_mm`, float output convs; fcos's
 towers launch the GN kernel 40 times at float32), before the same
-postprocess.
+postprocess. `use_pallas=False` (the JAX package's name) runs every
+kernel's plain version instead, on whatever device the Detector runs
+on; `data_parallel=True` splits each batch over every local CUDA
+device (`parallel.mesh`); `detect_one(visualize=, save_path=)` draws
+the detections (`utils.visualization`).
 
 The device is explicit: `Detector(..., device=None)` means "cuda" and
 raises when no GPU is present; pass `device="cpu"` to run on the CPU.
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -45,9 +50,11 @@ from mydetection_tpu_torch import checkpoint as ckpt_lib
 from mydetection_tpu_torch import quant
 from mydetection_tpu_torch import weight_import as wi
 from mydetection_tpu_torch.convert import from_jax_params, model_tree
+from mydetection_tpu_torch.kernels.route import plain_versions
 from mydetection_tpu_torch.models.layers import init_weights
 from mydetection_tpu_torch.ops.nms import postprocess
 from mydetection_tpu_torch.ops.rotated import box_corners, rotated_postprocess
+from mydetection_tpu_torch.parallel.mesh import shard_batch
 from mydetection_tpu_torch.registry import (
     check_input_size,
     forward_dense,
@@ -71,12 +78,15 @@ class Detections:
     classes:    (K,) int32 contiguous class ids.
     boxes_rot:  (K, 5) float32 (cx, cy, w, h, θ radians) for rotated
                 models, else None.
+    visualized: uint8 RGB render of the detections over the original
+                image; set only by `detect_one(visualize=True)`.
     """
 
     boxes_xyxy: np.ndarray
     scores: np.ndarray
     classes: np.ndarray
     boxes_rot: np.ndarray | None = None
+    visualized: np.ndarray | None = None
 
     def __len__(self) -> int:
         return int(self.scores.shape[0])
@@ -105,10 +115,14 @@ class Detections:
         return out
 
 
-def load_image_any(im):
-    """Path / PIL image / uint8 HWC ndarray → PIL image."""
+def load_image_any(*sources):
+    """The first of `sources` that is not None (a path, PIL image or
+    uint8 HWC ndarray) → PIL image."""
     from PIL import Image
 
+    im = next((x for x in sources if x is not None), None)
+    if im is None:
+        raise ValueError("provide one of img_path / pil_img / np_img")
     if isinstance(im, str):
         return Image.open(im)
     if isinstance(im, np.ndarray):
@@ -117,6 +131,25 @@ def load_image_any(im):
         return im
     raise TypeError(f"expected an image path, PIL image or ndarray, got "
                     f"{type(im).__name__}")
+
+
+def finalize_visualize(dets: Detections, img, class_names, visualize: bool,
+                       save_path: str | None) -> Detections:
+    """Draw the detections over the original PIL `img` when asked: keep
+    the render on `dets.visualized` (visualize) and/or write it to
+    `save_path`. The shared tail of `detect_one`, live and exported."""
+    if visualize or save_path:
+        from PIL import Image
+
+        from mydetection_tpu_torch.utils.visualization import draw_detections
+
+        vis = draw_detections(np.asarray(img.convert("RGB")), dets,
+                              class_names=class_names)
+        if save_path:
+            Image.fromarray(vis).save(save_path)
+        if visualize:
+            dets.visualized = vis
+    return dets
 
 
 def strip_detections(out: dict, i: int, info: LetterboxInfo, *,
@@ -201,20 +234,40 @@ class Detector:
     `calib_images` (None: noise); `quantized="<artifact>.npz"` serves a
     `save_quantized` artifact of either package and skips the float
     weights unless `params` or `weights_path` is given.
+
+    `use_pallas`: None or True runs the hand-written kernels (on the
+    card; their plain versions on the CPU); False runs every kernel's
+    plain version on every device, as the JAX package's
+    `use_pallas=False` restores its oracle path. Only the caller picks
+    it: nothing falls back to it. `data_parallel=True` holds one copy of
+    the model on each local CUDA device and splits every batch over
+    them; with one device it is the single-device path. `pack_input`
+    (the TPU stem's space-to-depth input layout) is not implemented.
     """
+
+    # the padded graph takes one conf_thres per image (`_conf_vector`),
+    # so the serving daemon coalesces mixed-threshold requests
+    supports_conf_vector = True
 
     def __init__(self, model_name: str = "yolov3",
                  weights_path: str | None = None, *, params=None,
                  rng_seed: int = 0, device: str | torch.device | None = None,
+                 use_pallas: bool | None = None, data_parallel: bool = False,
                  quantized: bool | str = False,
                  calib_images: Sequence | None = None,
-                 **config_overrides):
+                 pack_input: bool = False, **config_overrides):
+        if pack_input:
+            raise ValueError("pack_input is the TPU darknet stem's "
+                             "space-to-depth input layout; the PyTorch "
+                             "port runs the standard stem on (B, S, S, 3) "
+                             "canvases and does not implement it")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector runs on CUDA by default and no GPU "
                                "is visible; pass device='cpu' to run on the "
                                "CPU")
         self.device = device
+        self.use_pallas = use_pallas is None or bool(use_pallas)
         # served from an int8 artifact, the float weights are never
         # read: the model is built on the meta device (no init, no
         # memory) and only names the config
@@ -239,6 +292,35 @@ class Detector:
             self._q = self._quantize(calib_images)
         self._forward_dense = _make_forward_dense(self)
         self._post = make_post(self.cfg)
+        # data parallel: (device, dense forward) a device, the model or
+        # int8 tree copied to each; None on one device
+        self._replicas = None
+        if data_parallel:
+            self._replicas = self._replicate()
+
+    def _replicate(self):
+        from mydetection_tpu_torch.parallel.mesh import make_mesh, replicate
+
+        mesh = make_mesh()
+        if len(mesh) < 2:
+            return None
+        own = self.device
+        if own.type == "cuda" and own.index is None:
+            own = torch.device("cuda", torch.cuda.current_device())
+        if own not in mesh:
+            raise ValueError(f"data_parallel splits batches over {mesh}; "
+                             f"this Detector runs on {self.device}")
+        # this Detector's device keeps its own model and forward; only
+        # the others get a copy
+        mesh.remove(own)
+        if self._q is not None:
+            cfg = self.cfg
+            copies = [lambda images, q=q: quant.forward_dense_quantized(
+                          q, images, cfg) for q in replicate(self._q, mesh)]
+        else:
+            copies = [functools.partial(forward_dense, m)
+                      for m in replicate(self.model, mesh)]
+        return [(own, self._forward_dense), *zip(mesh, copies)]
 
     def _set_weights(self, params, weights_path: str | None,
                      rng_seed: int) -> None:
@@ -347,11 +429,21 @@ class Detector:
                              f"{tuple(images.shape)} {images.dtype}")
         check_input_size(int(images.shape[1]))
         conf = torch.from_numpy(
-            _conf_vector(conf_thres, n_real, images.shape[0])).to(self.device)
-        with torch.inference_mode():
-            out = self._post(self._forward_dense(images), conf,
-                             float(nms_iou))
-        return {k: v.cpu().numpy() for k, v in out.items()}
+            _conf_vector(conf_thres, n_real, images.shape[0]))
+        with torch.inference_mode(), plain_versions(not self.use_pallas):
+            if self._replicas is None:
+                out = self._post(self._forward_dense(images),
+                                 conf.to(self.device), float(nms_iou))
+                return {k: v.cpu().numpy() for k, v in out.items()}
+            mesh = [dev for dev, _ in self._replicas]
+            # shard_batch leaves out only trailing empty chunks, so the
+            # chunks line up with the first replicas
+            outs = [self._post(forward(chunk), c, float(nms_iou))
+                    for (_, forward), (_, chunk), (_, c) in zip(
+                        self._replicas, shard_batch(images, mesh),
+                        shard_batch(conf, mesh))]
+        return {k: torch.cat([o[k].cpu() for o in outs]).numpy()
+                for k in outs[0]}
 
     def _strip(self, out: dict, i: int, info: LetterboxInfo) -> Detections:
         return strip_detections(out, i, info, rotated=self.cfg.rotated)
@@ -371,14 +463,16 @@ class Detector:
     def detect_one(self, *, img_path=None, pil_img=None, np_img=None,
                    conf_thres: float | None = None,
                    nms_iou: float | None = None,
-                   input_size: int | None = None) -> Detections:
-        """Detect objects on one image (a path, PIL image or ndarray)."""
-        src = next((x for x in (img_path, pil_img, np_img) if x is not None),
-                   None)
-        if src is None:
-            raise ValueError("provide one of img_path / pil_img / np_img")
-        return self.detect_batch([src], conf_thres=conf_thres,
+                   input_size: int | None = None, visualize: bool = False,
+                   save_path: str | None = None) -> Detections:
+        """Detect objects on one image (a path, PIL image or ndarray).
+        visualize: keep a render of the detections over the image on
+        the result's `visualized`; save_path: write that render there."""
+        img = load_image_any(img_path, pil_img, np_img)
+        dets = self.detect_batch([img], conf_thres=conf_thres,
                                  nms_iou=nms_iou, input_size=input_size)[0]
+        return finalize_visualize(dets, img, self.cfg.class_names, visualize,
+                                  save_path)
 
     def detect_batch(self, images: Iterable, *,
                      conf_thres: float | None = None,

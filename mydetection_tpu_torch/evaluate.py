@@ -10,7 +10,11 @@ Example:
 `--device cpu` to evaluate on the CPU. `--rotated` scores a rotated
 model (rapid) with rotated-IoU matching (AP50, AP75). `--quantized`
 evaluates the int8 path, calibrated on the first `--calib-images`
-images of `--img-dir` (sorted by path).
+images of `--img-dir` (sorted by path). `--exported ARTIFACT` evaluates
+an export artifact (`mydetection_tpu_torch.export`) instead of building
+a model, on `--device` (an artifact runs only where it was exported,
+unless it was exported with use_pallas=False); `--data-parallel` splits
+each batch over every local CUDA device.
 """
 
 from __future__ import annotations
@@ -68,6 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "a float run to measure the PTQ mAP cost)")
     ap.add_argument("--calib-images", type=int, default=32,
                     help="calibration images for --quantized")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="split each batch over every local CUDA device")
+    ap.add_argument("--exported", default=None, metavar="ARTIFACT",
+                    help="evaluate an export artifact "
+                         "(mydetection_tpu_torch.export) instead of "
+                         "building a model — --model/--weights and all "
+                         "model overrides are ignored; nms_iou and the "
+                         "input size are the artifact's baked values")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -89,14 +101,47 @@ def calibration_paths(img_dir: str, n: int) -> list[str]:
     return paths[:n]
 
 
+def _evaluate_exported(args) -> dict:
+    """`--exported`: the artifact decides whether it is rotated (a
+    contradicting `--rotated` is an error), its nms_iou and its input
+    size; it runs on `--device`, which `load_exported` checks against
+    the device it was exported for."""
+    from mydetection_tpu_torch.export import load_exported, read_meta
+
+    meta = read_meta(args.exported)
+    if args.rotated and not meta["rotated"]:
+        raise SystemExit(f"--rotated passed but {args.exported} is an "
+                         f"axis-aligned {meta['model']!r} artifact")
+    served = load_exported(args.exported, device=args.device)
+    common = dict(conf_thres=args.conf_thres, nms_iou=meta["nms_iou"],
+                  batch_size=args.batch_size, max_images=args.max_images,
+                  num_threads=args.num_threads, results_path=args.out)
+    if meta["rotated"]:
+        from mydetection_tpu_torch.eval.rotated_eval import (
+            evaluate_rotated_detector,
+        )
+        stats = evaluate_rotated_detector(served, args.ann, args.img_dir,
+                                          **common)
+    else:
+        from mydetection_tpu_torch.eval.evaluator import evaluate_detector
+
+        stats = evaluate_detector(served, args.ann, args.img_dir, **common)
+    print({k: round(v, 4) for k, v in stats.items()})
+    return stats
+
+
 def main(argv: list[str] | None = None) -> dict:
     """Run the CLI on `argv` (None: sys.argv); prints and returns the
     stats dict."""
     args = build_parser().parse_args(argv)
+    if args.exported:
+        return _evaluate_exported(args)
 
     from mydetection_tpu_torch import Detector
 
     overrides = {}
+    if args.data_parallel:
+        overrides["data_parallel"] = True
     if args.input_size:
         overrides["input_size"] = args.input_size
     if args.float32:

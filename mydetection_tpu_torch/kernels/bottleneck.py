@@ -106,20 +106,23 @@ def fused_bottleneck_plain(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
     return torch.relu(z).to(dt)
 
 
-def _check_cuda(x: torch.Tensor, f: Folded) -> None:
-    """What the kernel takes: x a 4-D float32 or bfloat16 tensor on the
-    card in 16-byte aligned channels_last memory; c_in and c_out
-    multiples of 16, c_mid in C_MIDS, c_in == c_out without a projection;
-    the packed weights contiguous in x's dtype and the biases contiguous
-    float32, all on x's device, wd and bd both or neither."""
+def check_cuda(x: torch.Tensor, f: Folded, *, layout: bool = True) -> None:
+    """What the kernel takes, in checks a fake tensor can answer too: x
+    a 4-D float32 or bfloat16 tensor on the card in channels_last
+    memory; c_in and c_out multiples of 16, c_mid in C_MIDS, c_in ==
+    c_out without a projection; the packed weights contiguous in x's
+    dtype and the biases contiguous float32, all on x's device, wd and
+    bd both or neither. The launch also wants x 16-byte aligned.
+    `layout` False skips x's memory layout: a traced call's fake strides
+    may disagree with the ones the card produces (the launch checks the
+    real ones)."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"fused_bottleneck: x must be a 4-D float32 or "
                          f"bfloat16 tensor, got {tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous(memory_format=torch.channels_last) \
-            or x.data_ptr() % 16:
-        raise ValueError(f"fused_bottleneck reads 16-byte aligned "
-                         f"channels_last (NHWC) memory; got strides "
-                         f"{x.stride()} for shape {tuple(x.shape)}")
+    if layout and not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"fused_bottleneck reads channels_last (NHWC) "
+                         f"memory; got strides {x.stride()} for shape "
+                         f"{tuple(x.shape)}")
     c_in = x.shape[1]
     c_mid = f.w1.shape[-1] if f.w1.dim() == 2 else -1
     c_out = f.w3.shape[-1] if f.w3.dim() == 2 else -1
@@ -153,10 +156,12 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None,
     """One stride-1 bottleneck on NCHW x (B, c_in, H, W) with folded
     weights (`fold_bottleneck`).
 
-    CPU tensors run `fused_bottleneck_plain`. CUDA tensors launch the
-    kernel and count the launch: x float32 or bfloat16 in channels_last
-    memory, the weights in x's dtype, the biases float32. The output
-    (B, c_out, H, W) has x's dtype and layout.
+    CPU tensors run `fused_bottleneck_plain`. CUDA tensors call the
+    custom op `mydet::fused_bottleneck` (`kernels.ops`), whose CUDA
+    implementation `fused_bottleneck_launch` launches the kernel and
+    counts the launch: x float32 or bfloat16 in channels_last memory,
+    the weights in x's dtype, the biases float32. The output (B, c_out,
+    H, W) has x's dtype and layout.
     """
     if x.device.type == "cpu":
         return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
@@ -169,11 +174,25 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None,
         raise NotImplementedError(
             "fused_bottleneck has no backward (nor has the TPU kernel it "
             "replaces); a block that needs gradients runs unfused")
-    _check_cuda(x, f)
+    return torch.ops.mydet.fused_bottleneck(x, *f)
+
+
+def _out_like(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    b, _, h, w = x.shape
+    return torch.empty((b, w3.shape[-1], h, w), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+def fused_bottleneck_launch(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
+                            wd=None, bd=None) -> torch.Tensor:
+    """The CUDA implementation of `mydet::fused_bottleneck`: one launch
+    of csrc/bottleneck.cu, counted on `fused_bottleneck.launches`."""
+    check_cuda(x, Folded(w1, b1, w2, b2, w3, b3, wd, bd))
+    if x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck needs a 16-byte aligned x")
     b, c_in, h, w = x.shape
     c_mid, c_out = w1.shape[1], w3.shape[1]
-    out = torch.empty((b, c_out, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = _out_like(x, w3)
     if out.numel() == 0:
         return out
     lib = _library()
@@ -192,6 +211,27 @@ def fused_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None,
                            f"{lib.bottleneck_error_string(err).decode()}")
     fused_bottleneck.launches += 1
     return out
+
+
+def fused_bottleneck_fake(x: torch.Tensor, w1, b1, w2, b2, w3, b3,
+                          wd=None, bd=None) -> torch.Tensor:
+    """`mydet::fused_bottleneck`'s output for a traced call."""
+    check_cuda(x, Folded(w1, b1, w2, b2, w3, b3, wd, bd), layout=False)
+    return _out_like(x, w3)
+
+
+def fused_bottleneck_flops(x_shape, w1_shape, w2_shape, w3_shape,
+                           wd_shape=None) -> int:
+    """The multiply-adds of the convs the block fuses, two FLOPs each:
+    2 · B·H·W · (c_in·c_mid + 9·c_mid·c_mid + c_mid·c_out [+ c_in·c_out
+    with the projection]), what torch's FLOP counter reads from the
+    unfused block's convs (the BN, bias, residual and ReLU are not
+    counted beside a conv)."""
+    b, _, h, w = x_shape
+    macs = sum(rows * cols for rows, cols in (w1_shape, w2_shape, w3_shape))
+    if wd_shape is not None:
+        macs += wd_shape[0] * wd_shape[1]
+    return 2 * b * h * w * macs
 
 
 fused_bottleneck.launches = 0

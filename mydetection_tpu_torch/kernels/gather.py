@@ -35,24 +35,30 @@ def gather_rows(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """(B, N, C) rows picked by (B, K) indices → (B, K, C) in src's
     dtype.
 
-    CPU tensors run `gather_rows_plain`. CUDA tensors launch the kernel
-    (a warp per output row) and count the launch: src contiguous
-    float32, bfloat16 or float16; sel int64 or int32 on src's device
-    with unit stride along K. Indices must lie in [0, N); the kernel
-    does not check them.
+    CPU tensors run `gather_rows_plain`. CUDA tensors call the custom op
+    `mydet::gather_rows` (`kernels.ops`), whose CUDA implementation
+    `gather_rows_launch` launches the kernel (a warp per output row) and
+    counts the launch: src contiguous float32, bfloat16 or float16; sel
+    int64 or int32 on src's device with unit stride along K. Indices
+    must lie in [0, N); the kernel does not check them.
     """
     if src.device.type == "cpu":
         return gather_rows_plain(src, sel)
     if src.device.type != "cuda":
         raise ValueError(f"gather_rows runs on CPU or CUDA tensors, got "
                          f"{src.device}")
+    return torch.ops.mydet.gather_rows(src, sel)
+
+
+def check_cuda(src: torch.Tensor, sel: torch.Tensor) -> None:
+    """What the kernel takes, in checks a fake tensor can answer too."""
     if src.dim() != 3 or src.dtype not in _ELEM_BYTES \
             or not src.is_contiguous():
         raise ValueError(f"gather_rows: src must be a contiguous (B, N, C) "
                          f"float32, bfloat16 or float16 tensor, got "
                          f"{tuple(src.shape)} {src.dtype} strides "
                          f"{src.stride()}")
-    b, n, c = src.shape
+    b = src.shape[0]
     if sel.dim() != 2 or sel.shape[0] != b or sel.dtype not in _INDEX_BYTES \
             or sel.device != src.device \
             or (sel.shape[1] > 1 and sel.stride(1) != 1):
@@ -60,6 +66,13 @@ def gather_rows(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
                          f"int32 tensor on {src.device} with unit stride "
                          f"along K, got {tuple(sel.shape)} {sel.dtype} on "
                          f"{sel.device} strides {sel.stride()}")
+
+
+def gather_rows_launch(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation of `mydet::gather_rows`: one launch of
+    csrc/gather.cu, counted on `gather_rows.launches`."""
+    check_cuda(src, sel)
+    b, n, c = src.shape
     k = sel.shape[1]
     out = torch.empty((b, k, c), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
@@ -79,6 +92,12 @@ def gather_rows(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
                            f"{lib.gather_error_string(err).decode()}")
     gather_rows.launches += 1
     return out
+
+
+def gather_rows_fake(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """`mydet::gather_rows`'s output for a traced call."""
+    check_cuda(src, sel)
+    return src.new_empty((src.shape[0], sel.shape[1], src.shape[2]))
 
 
 gather_rows.launches = 0

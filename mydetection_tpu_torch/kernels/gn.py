@@ -259,13 +259,15 @@ def bias_gn_relu_bwd_plain(x: torch.Tensor, y: torch.Tensor,
     return (dxf.to(x.dtype), *sums)
 
 
-def _check_cuda(name: str, x: torch.Tensor, groups: int,
-                **params: torch.Tensor) -> None:
-    """What the kernels take: x a 4-D float32 or bfloat16 tensor on the
-    card in channels_last memory starting on a 16-byte boundary (bulk
-    copies move 16-byte units), C split into whole groups, each
-    parameter a contiguous float32 (C,) tensor on x's device. `gn_plan`
-    checks the pixel row."""
+def _check_cuda(name: str, x: torch.Tensor, groups: int, *,
+                layout: bool = True, **params: torch.Tensor) -> None:
+    """What the kernels take, in checks a fake tensor can answer too: x
+    a 4-D float32 or bfloat16 tensor on the card in channels_last
+    memory, C split into whole groups, each parameter a contiguous
+    float32 (C,) tensor on x's device. `gn_plan` checks the pixel row,
+    `_check_aligned` the start. `layout` False skips x's memory layout:
+    a traced call's fake strides may disagree with the ones the card
+    produces (the launch checks the real ones)."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"{name}: x must be a 4-D float32 or bfloat16 "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
@@ -273,17 +275,22 @@ def _check_cuda(name: str, x: torch.Tensor, groups: int,
     if groups <= 0 or c % groups:
         raise ValueError(f"{name}: {c} channels do not split into {groups} "
                          f"groups")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if layout and not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{name} reads channels_last (NHWC) memory; got "
                          f"strides {x.stride()} for shape {tuple(x.shape)}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must start on a 16-byte boundary")
     for pname, v in params.items():
         if v.shape != (c,) or v.dtype != torch.float32 \
                 or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"{name}: {pname} must be a contiguous float32 "
                              f"({c},) tensor on {x.device}, got "
                              f"{tuple(v.shape)} {v.dtype} on {v.device}")
+
+
+def _check_aligned(name: str, x: torch.Tensor) -> None:
+    """x must start on a 16-byte boundary: bulk copies move 16-byte
+    units."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start on a 16-byte boundary")
 
 
 def plan_for(kind: str, x: torch.Tensor, groups: int) -> GNPlan:
@@ -349,15 +356,26 @@ def bias_gn_relu(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
                  shift: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
     """y = relu(GN(x + bias)·scale + shift), x NCHW (B, C, H, W), eps 1e-5.
 
-    CPU tensors run `bias_gn_relu_plain`. CUDA tensors launch the kernel
-    on `gn_plan`'s clusters and count the launch: x float32 or bfloat16
-    in channels_last memory (NHWC, as the convs emit it on the card),
-    bias/scale/shift float32 (C,). The output has x's dtype and layout.
+    CPU tensors run `bias_gn_relu_plain`. CUDA tensors call the custom
+    op `mydet::bias_gn_relu` (`kernels.ops`), whose CUDA implementation
+    `bias_gn_relu_launch` launches the kernel on `gn_plan`'s clusters and
+    counts the launch: x float32 or bfloat16 in channels_last memory
+    (NHWC, as the convs emit it on the card), bias/scale/shift float32
+    (C,). The output has x's dtype and layout.
     """
     if _device_of("bias_gn_relu", x) == "cpu":
         return bias_gn_relu_plain(x, bias, scale, shift, groups=groups)
+    return torch.ops.mydet.bias_gn_relu(x, bias, scale, shift, groups)
+
+
+def bias_gn_relu_launch(x: torch.Tensor, bias: torch.Tensor,
+                        scale: torch.Tensor, shift: torch.Tensor,
+                        groups: int) -> torch.Tensor:
+    """The CUDA implementation of `mydet::bias_gn_relu`: one launch of
+    csrc/gn.cu's forward, counted on `bias_gn_relu.launches`."""
     _check_cuda("bias_gn_relu", x, groups, bias=bias, scale=scale,
                 shift=shift)
+    _check_aligned("bias_gn_relu", x)
     out = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
         return out
@@ -365,6 +383,15 @@ def bias_gn_relu(x: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
                 plan_for("fwd", x, groups))
     bias_gn_relu.launches += 1
     return out
+
+
+def bias_gn_relu_fake(x: torch.Tensor, bias: torch.Tensor,
+                      scale: torch.Tensor, shift: torch.Tensor,
+                      groups: int) -> torch.Tensor:
+    """`mydet::bias_gn_relu`'s output for a traced call."""
+    _check_cuda("bias_gn_relu", x, groups, layout=False, bias=bias,
+                scale=scale, shift=shift)
+    return torch.empty_like(x, memory_format=torch.channels_last)
 
 
 bias_gn_relu.launches = 0
@@ -382,6 +409,7 @@ def bias_gn_relu_fwd_stats(x: torch.Tensor, bias: torch.Tensor,
                                             groups=groups)
     _check_cuda("bias_gn_relu_fwd_stats", x, groups, bias=bias, scale=scale,
                 shift=shift)
+    _check_aligned("bias_gn_relu_fwd_stats", x)
     b = x.shape[0]
     out = torch.empty_like(x, memory_format=torch.channels_last)
     mean = torch.empty(b, groups, device=x.device)
@@ -431,6 +459,7 @@ def bias_gn_relu_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
         return bias_gn_relu_bwd_plain(x, y, dy, bias, scale, mean, inv,
                                       groups=groups)
     _check_cuda("bias_gn_relu_bwd", x, groups, bias=bias, scale=scale)
+    _check_aligned("bias_gn_relu_bwd", x)
     b, c, h, w = x.shape
     for name, t in (("y", y), ("dy", dy)):
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:

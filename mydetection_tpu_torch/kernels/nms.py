@@ -151,11 +151,14 @@ def greedy_keep_from_iou(iou: torch.Tensor, valid: torch.Tensor,
     for start in range(0, k, block):
         stop = min(start + block, k)
         rows = iou[:, start:stop]                             # (B, T, K)
-        intra = rows[:, :, start:stop] > thr                  # (B, T, T)
         ar = idx[:stop - start]
-        bk = keep[:, start:stop].clone()
+        # spare[:, i, j]: a kept row i leaves column j of the block
+        # (j <= i, or iou[i, j] <= thr)
+        spare = ~((rows[:, :, start:stop] > thr)
+                  & (ar[None, :] > ar[:, None]))              # (B, T, T)
+        bk = keep[:, start:stop]
         for i in range(stop - start):
-            bk &= ~(intra[:, i] & (ar > i) & bk[:, i:i + 1])
+            bk = torch.where(bk[:, i:i + 1], bk & spare[:, i], bk)
         sup_any = ((rows > thr) & bk[:, :, None]).any(dim=1)  # (B, K)
         keep &= ~(sup_any & (idx >= stop))
         keep[:, start:stop] = bk
@@ -176,16 +179,25 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
 
     boxes (B, K, 4) float32 xyxy, each row sorted by descending score
     and already class-offset; valid (B, K) bool or uint8. Returns bool
-    (B, K). CPU tensors run `nms_keep_plain`; CUDA tensors launch the
-    kernel (`plan_for(valid)`: a cluster of blocks an image) and count
-    the launch. Raises ValueError for a K whose boxes do not fit a
-    block's shared memory (above 11,360).
+    (B, K). CPU tensors run `nms_keep_plain`; CUDA tensors call the
+    custom op `mydet::nms_keep` (`kernels.ops`), whose CUDA
+    implementation `nms_keep_launch` launches the kernel
+    (`plan_for(valid)`: a cluster of blocks an image) and counts the
+    launch. Raises ValueError for a K whose boxes do not fit a block's
+    shared memory (above 11,360).
     """
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, valid, iou_thres)
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_keep runs on CPU or CUDA tensors, got "
                          f"{boxes.device}")
+    return torch.ops.mydet.nms_keep(boxes, valid, float(iou_thres))
+
+
+def check_cuda(boxes: torch.Tensor, valid: torch.Tensor) -> None:
+    """What the kernel takes, in checks a fake tensor can answer too:
+    boxes a contiguous (B, K, 4) float32, valid a contiguous (B, K) bool
+    or uint8 on the same device."""
     if boxes.dtype != torch.float32 or boxes.dim() != 3 \
             or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4) float32, got "
@@ -199,8 +211,16 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
                          f"{boxes.device}")
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep needs contiguous boxes and valid")
+
+
+def nms_keep_launch(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_thres: float) -> torch.Tensor:
+    """The CUDA implementation of `mydet::nms_keep`: one launch of
+    csrc/nms.cu for the batch, counted on `nms_keep.launches`."""
+    check_cuda(boxes, valid)
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep needs 16-byte aligned boxes")
+    b, k, _ = boxes.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
@@ -212,6 +232,13 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
                            f"{lib.nms_error_string(err).decode()}")
     nms_keep.launches += 1
     return keep
+
+
+def nms_keep_fake(boxes: torch.Tensor, valid: torch.Tensor,
+                  iou_thres: float) -> torch.Tensor:
+    """`mydet::nms_keep`'s output for a traced call."""
+    check_cuda(boxes, valid)
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
 
 
 nms_keep.launches = 0

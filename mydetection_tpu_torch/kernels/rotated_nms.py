@@ -43,16 +43,23 @@ def nms_from_iou_keep(iou: torch.Tensor, valid: torch.Tensor,
     iou (B, K, K) float32 contiguous, rows and columns sorted by
     descending score; valid (B, K) bool or uint8. Returns bool (B, K).
     CPU tensors run `nms_from_iou_keep_plain` (in blocks of `block`);
-    CUDA tensors launch the kernel (`plan_for(valid, box_floats=0)`: a
-    cluster of blocks an image; the result does not depend on `block`)
-    and count the launch. Raises ValueError for a K whose ring does not
-    fit a block's shared memory (above 27,680).
+    CUDA tensors call the custom op `mydet::nms_from_iou_keep`
+    (`kernels.ops`), whose CUDA implementation `nms_from_iou_keep_launch`
+    launches the kernel (`plan_for(valid, box_floats=0)`: a cluster of
+    blocks an image; the result does not depend on `block`) and counts
+    the launch. Raises ValueError for a K whose ring does not fit a
+    block's shared memory (above 27,680).
     """
     if iou.device.type == "cpu":
         return nms_from_iou_keep_plain(iou, valid, iou_thres, block=block)
     if iou.device.type != "cuda":
         raise ValueError(f"nms_from_iou_keep runs on CPU or CUDA tensors, "
                          f"got {iou.device}")
+    return torch.ops.mydet.nms_from_iou_keep(iou, valid, float(iou_thres))
+
+
+def check_cuda(iou: torch.Tensor, valid: torch.Tensor) -> None:
+    """What the kernel takes, in checks a fake tensor can answer too."""
     if iou.dtype != torch.float32 or iou.dim() != 3 \
             or iou.shape[1] != iou.shape[2]:
         raise ValueError(f"iou must be (B, K, K) float32, got "
@@ -65,6 +72,15 @@ def nms_from_iou_keep(iou: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"valid is on {valid.device}, iou on {iou.device}")
     if not (iou.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_from_iou_keep needs contiguous iou and valid")
+
+
+def nms_from_iou_keep_launch(iou: torch.Tensor, valid: torch.Tensor,
+                             iou_thres: float) -> torch.Tensor:
+    """The CUDA implementation of `mydet::nms_from_iou_keep`: one launch
+    of csrc/rotated_nms.cu for the batch, counted on
+    `nms_from_iou_keep.launches`."""
+    check_cuda(iou, valid)
+    b, k, _ = iou.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
     if b == 0 or k == 0:
         return keep
@@ -77,6 +93,13 @@ def nms_from_iou_keep(iou: torch.Tensor, valid: torch.Tensor,
                            f"{lib.rotated_nms_error_string(err).decode()}")
     nms_from_iou_keep.launches += 1
     return keep
+
+
+def nms_from_iou_keep_fake(iou: torch.Tensor, valid: torch.Tensor,
+                           iou_thres: float) -> torch.Tensor:
+    """`mydet::nms_from_iou_keep`'s output for a traced call."""
+    check_cuda(iou, valid)
+    return iou.new_empty(iou.shape[:2], dtype=torch.bool)
 
 
 nms_from_iou_keep.launches = 0

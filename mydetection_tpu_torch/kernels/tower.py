@@ -87,14 +87,17 @@ def conv3x3_chain_reference(x: torch.Tensor, packed: torch.Tensor,
     return x
 
 
-def _check_cuda(x: torch.Tensor, packed: torch.Tensor,
-                biases: torch.Tensor) -> None:
-    """What the kernel takes: x a 4-D float32 or bfloat16 tensor on the
-    card in channels_last memory, 16-byte aligned, C a multiple of 16
-    in float32 and of 64 in bfloat16 (the wgmma kernel's K chunk is 64
-    channels of one tap); packed a contiguous, 16-byte aligned
-    (L, 9·C, C) tensor of x's dtype, L ≥ 1, and biases a contiguous
-    float32 (L, C) tensor, both on x's device."""
+def check_cuda(x: torch.Tensor, packed: torch.Tensor,
+               biases: torch.Tensor, *, layout: bool = True) -> None:
+    """What the kernel takes, in checks a fake tensor can answer too: x
+    a 4-D float32 or bfloat16 tensor on the card in channels_last
+    memory, C a multiple of 16 in float32 and of 64 in bfloat16 (the
+    wgmma kernel's K chunk is 64 channels of one tap); packed a
+    contiguous (L, 9·C, C) tensor of x's dtype, L ≥ 1, and biases a
+    contiguous float32 (L, C) tensor, both on x's device. The launch
+    also wants x and packed 16-byte aligned. `layout` False skips x's
+    memory layout: a traced call's fake strides may disagree with the
+    ones the card produces (the launch checks the real ones)."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"conv3x3_chain: x must be a 4-D float32 or "
                          f"bfloat16 tensor, got {tuple(x.shape)} {x.dtype}")
@@ -103,18 +106,16 @@ def _check_cuda(x: torch.Tensor, packed: torch.Tensor,
     if c % multiple:
         raise ValueError(f"conv3x3_chain: {c} channels are not a multiple "
                          f"of {multiple} ({x.dtype})")
-    if not x.is_contiguous(memory_format=torch.channels_last) \
-            or x.data_ptr() % 16:
-        raise ValueError(f"conv3x3_chain reads 16-byte aligned "
-                         f"channels_last (NHWC) memory; got strides "
-                         f"{x.stride()} for shape {tuple(x.shape)}")
+    if layout and not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"conv3x3_chain reads channels_last (NHWC) "
+                         f"memory; got strides {x.stride()} for shape "
+                         f"{tuple(x.shape)}")
     layers = packed.shape[0] if packed.dim() == 3 else 0
     if layers < 1 or packed.shape != (layers, 9 * c, c) \
             or packed.dtype != x.dtype \
-            or packed.device != x.device or not packed.is_contiguous() \
-            or packed.data_ptr() % 16:
+            or packed.device != x.device or not packed.is_contiguous():
         raise ValueError(f"conv3x3_chain: packed weights must be a "
-                         f"contiguous, 16-byte aligned (L, {9 * c}, {c}) "
+                         f"contiguous (L, {9 * c}, {c}) "
                          f"{x.dtype} tensor on {x.device}, got "
                          f"{tuple(packed.shape)} {packed.dtype} on "
                          f"{packed.device}")
@@ -130,11 +131,13 @@ def conv3x3_chain(x: torch.Tensor, packed: torch.Tensor,
                   biases: torch.Tensor) -> torch.Tensor:
     """L × [3x3 same conv + bias + ReLU] on NCHW x (B, C, H, W).
 
-    CPU tensors run `conv3x3_chain_plain`. CUDA tensors launch the
-    kernel (L launches of one implicit-GEMM kernel, counted once) and
-    count the launch: x float32 or bfloat16 in channels_last memory,
-    `packed` from `pack_weights` in x's dtype, biases float32 (L, C).
-    The output has x's dtype and layout.
+    CPU tensors run `conv3x3_chain_plain`. CUDA tensors call the custom
+    op `mydet::conv3x3_chain` (`kernels.ops`), whose CUDA implementation
+    `conv3x3_chain_launch` launches the kernel (L launches of one
+    implicit-GEMM kernel, counted once) and counts the launch: x float32
+    or bfloat16 in channels_last memory, `packed` from `pack_weights` in
+    x's dtype, biases float32 (L, C). The output has x's dtype and
+    layout.
     """
     if x.device.type == "cpu":
         return conv3x3_chain_plain(x, packed, biases)
@@ -147,7 +150,18 @@ def conv3x3_chain(x: torch.Tensor, packed: torch.Tensor,
             "conv3x3_chain has no backward (nor has the TPU kernel it "
             "replaces); under autograd run conv3x3_chain_plain, as the "
             "RetinaNet subnets do when they train")
-    _check_cuda(x, packed, biases)
+    return torch.ops.mydet.conv3x3_chain(x, packed, biases)
+
+
+def conv3x3_chain_launch(x: torch.Tensor, packed: torch.Tensor,
+                         biases: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation of `mydet::conv3x3_chain`: the chain's
+    layers through csrc/tower.cu, counted once on
+    `conv3x3_chain.launches`."""
+    check_cuda(x, packed, biases)
+    if x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("conv3x3_chain needs 16-byte aligned x and packed "
+                         "weights")
     b, c, h, w = x.shape
     layers = packed.shape[0]
     out = torch.empty_like(x, memory_format=torch.channels_last)
@@ -166,6 +180,22 @@ def conv3x3_chain(x: torch.Tensor, packed: torch.Tensor,
                            f"{lib.tower_error_string(err).decode()}")
     conv3x3_chain.launches += 1
     return out
+
+
+def conv3x3_chain_fake(x: torch.Tensor, packed: torch.Tensor,
+                       biases: torch.Tensor) -> torch.Tensor:
+    """`mydet::conv3x3_chain`'s output for a traced call."""
+    check_cuda(x, packed, biases, layout=False)
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+def conv3x3_chain_flops(x_shape, packed_shape) -> int:
+    """The multiply-adds of the L convs the chain fuses, two FLOPs each:
+    2 · B·H·W · 9·C · C a layer (the bias and ReLU are not counted, as
+    torch's FLOP counter does not count them beside a conv)."""
+    b, c, h, w = x_shape
+    layers, rows, c_out = packed_shape
+    return 2 * b * h * w * rows * c_out * layers
 
 
 conv3x3_chain.launches = 0

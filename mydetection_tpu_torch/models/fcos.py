@@ -26,7 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.kernels.gn import BiasGNReLU, bias_gn_relu
+from mydetection_tpu_torch.kernels.gn import (
+    BiasGNReLU,
+    bias_gn_relu,
+    bias_gn_relu_plain,
+)
+from mydetection_tpu_torch.kernels.route import pick
 from mydetection_tpu_torch.losses import (
     bce_with_logits,
     focal_loss,
@@ -119,7 +124,8 @@ class Tower(nn.Module):
             if torch.is_grad_enabled() and any(t.requires_grad for t in args):
                 x = BiasGNReLU.apply(*args, GN_GROUPS)
             else:
-                x = bias_gn_relu(*args, groups=GN_GROUPS)
+                x = pick(bias_gn_relu, bias_gn_relu_plain)(
+                    *args, groups=GN_GROUPS)
         return x
 
 

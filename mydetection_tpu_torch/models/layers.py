@@ -39,7 +39,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor
     """NCHW x OIHW conv with symmetric (k-1)//2 padding per side; the
     weight is cast to the activation dtype."""
     ph, pw = (w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(ph, pw))
+    return F.conv2d(x, _as_dtype(w, x.dtype), stride=stride,
+                    padding=(ph, pw))
+
+
+def _as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t.to(dtype)`, leaving out the call where it is a no-op: an
+    exported program records every `.to` as a node (and a metadata
+    check), a quarter of a float32 detect program's nodes."""
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 def bn_fold(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -52,8 +60,8 @@ def bn_fold(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
 def batch_norm(x: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor) -> torch.Tensor:
     """x*scale + shift over the channel axis 1, in x's dtype."""
-    return (x * scale.to(x.dtype)[:, None, None]
-            + shift.to(x.dtype)[:, None, None])
+    return (x * _as_dtype(scale, x.dtype).view(-1, 1, 1)
+            + _as_dtype(shift, x.dtype).view(-1, 1, 1))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from mydetection_tpu_torch.kernels.bottleneck import (
     fold_bottleneck,
     fused_bottleneck,
 )
+from mydetection_tpu_torch.kernels.route import kernels_enabled
 from mydetection_tpu_torch.models.layers import (
     ConvBN,
     max_pool,
@@ -72,11 +73,12 @@ class Bottleneck(nn.Module):
 
     def takes_kernel(self, x: torch.Tensor) -> bool:
         """Whether `forward(x)` launches the fused kernel: a routed block,
-        x on the card, eval mode, and no gradient needed."""
+        x on the card, eval mode, no gradient needed, and the kernels
+        not routed to their plain versions (`kernels.plain_versions`)."""
         needs_grad = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         return (self.fused and x.device.type == "cuda" and not self.training
-                and not needs_grad)
+                and not needs_grad and kernels_enabled())
 
     def unfused(self, x: torch.Tensor) -> torch.Tensor:
         """The JAX `_bottleneck`: conv → BN → ReLU twice, conv → BN, the

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mydetection_tpu_torch.kernels.route import kernels_enabled
 from mydetection_tpu_torch.kernels.tower import (
     conv3x3_chain,
     conv3x3_chain_plain,
@@ -135,7 +136,8 @@ class Subnet(nn.Module):
     def forward(self, x: torch.Tensor, packed: torch.Tensor,
                 biases: torch.Tensor) -> torch.Tensor:
         args = (x, packed, biases)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if not kernels_enabled() or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in args)):
             return conv_bias(self.out, conv3x3_chain_plain(*args))
         return conv_bias(self.out, conv3x3_chain(*args))
 

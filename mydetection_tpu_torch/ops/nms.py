@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from mydetection_tpu_torch.kernels.gather import gather_rows
-from mydetection_tpu_torch.kernels.nms import nms_keep
+from mydetection_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
+from mydetection_tpu_torch.kernels.nms import nms_keep, nms_keep_plain
+from mydetection_tpu_torch.kernels.route import pick
 
 CLASS_OFFSET = 8192.0  # > any input_size; guarantees class separation
 NEG_INF = -1e30
@@ -44,8 +45,8 @@ def batched_class_nms(boxes: torch.Tensor, scores: torch.Tensor,
     """Per-class NMS over (B, K) score-sorted rows via the class-offset
     trick; returns the (B, K) bool keep-mask."""
     offset = boxes + (classes.to(boxes.dtype) * CLASS_OFFSET)[..., None]
-    return nms_keep(offset.contiguous(), (scores > NEG_INF / 2).contiguous(),
-                    iou_thres)
+    return pick(nms_keep, nms_keep_plain)(
+        offset.contiguous(), (scores > NEG_INF / 2).contiguous(), iou_thres)
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -102,7 +103,9 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
             box_max = box_max * score_mul
         if multi_label:
             _, box_sel = top_k(box_max, pre_nms)               # (B, kb)
-            sel = torch.sigmoid(gather_rows(score_logits, box_sel).float())
+            sel = torch.sigmoid(
+                pick(gather_rows, gather_rows_plain)(score_logits, box_sel)
+                .float())
             if score_mul is not None:
                 sel = sel * torch.gather(score_mul, 1, box_sel)[..., None]
             return _multilabel_pairs(boxes, sel, box_sel, conf,
@@ -116,7 +119,9 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor | None = None,
             raise ValueError("per-box (B, N) scores require classes")
     elif multi_label:
         _, box_sel = top_k(torch.amax(scores, dim=-1), pre_nms)
-        return _multilabel_pairs(boxes, gather_rows(scores, box_sel),
+        return _multilabel_pairs(boxes,
+                                 pick(gather_rows, gather_rows_plain)(
+                                     scores, box_sel),
                                  box_sel, conf, iou_thres=iou_thres,
                                  pre_nms=pre_nms, max_dets=max_dets)
     else:

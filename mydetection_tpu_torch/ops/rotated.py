@@ -25,7 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from mydetection_tpu_torch.kernels.rotated_nms import nms_from_iou_keep
+from mydetection_tpu_torch.kernels.rotated_nms import (
+    nms_from_iou_keep,
+    nms_from_iou_keep_plain,
+)
+from mydetection_tpu_torch.kernels.route import pick
 from mydetection_tpu_torch.ops.nms import NEG_INF, _rows, _top_k_padded, top_k
 
 EPS = 1e-9
@@ -241,8 +245,8 @@ def rotated_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, *,
     NEG_INF. Returns the bool keep-mask (B, K)."""
     valid = scores > NEG_INF / 2
     iou = pairwise_rotated_iou(boxes, boxes)
-    return nms_from_iou_keep(iou.contiguous(), valid.contiguous(), iou_thres,
-                             block=block)
+    return pick(nms_from_iou_keep, nms_from_iou_keep_plain)(
+        iou.contiguous(), valid.contiguous(), iou_thres, block=block)
 
 
 def rotated_postprocess(boxes: torch.Tensor, scores: torch.Tensor, *,

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mydetection_tpu_torch.kernels.gn import bias_gn_relu
+from mydetection_tpu_torch.kernels.gn import bias_gn_relu, bias_gn_relu_plain
+from mydetection_tpu_torch.kernels.route import pick
 from mydetection_tpu_torch.models import fcos as fcos_mod
 from mydetection_tpu_torch.models.layers import ConvBN, conv2d, max_pool
 from mydetection_tpu_torch.models.resnet import prepare_input
@@ -97,8 +98,9 @@ class _CalibBE:
     def conv_gn_relu(self, f: dict, gn: dict, x):
         """FCOS's tower layer as the float model runs it: the conv, then
         bias + GroupNorm + ReLU in one `bias_gn_relu`."""
-        return bias_gn_relu(conv2d(x.to(self.dt), f["wf"]), f["bias"],
-                            gn["scale"], gn["bias"], groups=fcos_mod.GN_GROUPS)
+        return pick(bias_gn_relu, bias_gn_relu_plain)(
+            conv2d(x.to(self.dt), f["wf"]), f["bias"], gn["scale"],
+            gn["bias"], groups=fcos_mod.GN_GROUPS)
 
     def deq(self, x):
         return x
@@ -148,8 +150,9 @@ class _QuantBE:
     def conv_gn_relu(self, q: dict, gn: dict, xr):
         """(acc·s·wscale + m0·wscale·wsum) + bias, GroupNorm, ReLU: the
         epilogue without its bias, then `bias_gn_relu` at float32."""
-        return bias_gn_relu(self.conv(q, xr, bias=False), q["bias"],
-                            gn["scale"], gn["bias"], groups=fcos_mod.GN_GROUPS)
+        return pick(bias_gn_relu, bias_gn_relu_plain)(
+            self.conv(q, xr, bias=False), q["bias"], gn["scale"],
+            gn["bias"], groups=fcos_mod.GN_GROUPS)
 
     def deq(self, xr):
         return _deq(xr)

@@ -1092,3 +1092,125 @@ def test_int8_detect_launches(cuda, name):
     want.update(QUANT_LAUNCHES[name])
     assert got == want
     assert all(np.isfinite(d.boxes_xyxy).all() for d in dets)
+
+
+# -- the custom ops, export and FLOPs on the card ------------------------
+
+
+def op_cases(dev):
+    """Small inputs for each `mydet::` op, on `dev`: (name, args)."""
+    gen = torch.Generator(device=dev.type).manual_seed(0)
+    boxes, valid = nms_cases(np.random.RandomState(0), 2, 200)
+    iou, rvalid = rotated_cases(np.random.RandomState(0), 2, 96,
+                                device=dev.type)
+    x, f = bottleneck_case(gen, 2, 9, 13, 64, 256, torch.bfloat16,
+                           device=dev.type)
+    tx, packed, biases = tower_case(gen, 2, 9, 13, torch.bfloat16, c=64,
+                                    device=dev.type)
+    gn_args = tuple(torch.randn(64, generator=gen, device=dev)
+                    for _ in range(3))
+    gx = torch.randn(2, 64, 11, 13, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    src = torch.randn(2, 300, 80, generator=gen, device=dev)
+    sel = torch.randint(0, 300, (2, 64), generator=gen, device=dev)
+    return [
+        ("nms_keep", (torch.from_numpy(boxes).to(dev),
+                      torch.from_numpy(valid).to(dev), THR)),
+        ("nms_from_iou_keep", (iou.contiguous(), rvalid.contiguous(), THR)),
+        ("bias_gn_relu", (gx, *gn_args, 32)),
+        ("conv3x3_chain", (tx, packed, biases)),
+        ("fused_bottleneck", (x, *f)),
+        ("gather_rows", (src, sel)),
+    ]
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_custom_op_fake_matches_real(cuda, index):
+    """`torch.library.opcheck` on each op: its schema, its fake
+    implementation's shapes, dtypes and strides against the real one's,
+    and its tracing through AOT dispatch."""
+    from mydetection_tpu_torch.kernels import ops
+
+    name, args = op_cases(cuda)[index]
+    assert f"mydet::{name}" in ops.OP_NAMES
+    torch.library.opcheck(getattr(torch.ops.mydet, name).default, args)
+
+
+def export_pair(name, tmp_path, **kw):
+    from mydetection_tpu_torch.export import export_detector, load_exported
+
+    det = Detector(name, device="cuda", input_size=64, rng_seed=0, **kw)
+    path = str(tmp_path / f"{name}.npz")
+    export_detector(det, path, batch_size=2)
+    return det, load_exported(path)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("yolov3", {"nms_keep": 1}),
+    ("fcos", {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
+              "fused_bottleneck": 6}),
+])
+def test_exported_equals_live_and_launches(cuda, tmp_path, name, want):
+    """The exported bf16 program on the card answers bit for bit as the
+    live Detector and launches exactly its kernels, through the
+    `mydet::` ops the metadata lists."""
+    det, served = export_pair(name, tmp_path, conf_thres=0.005)
+    assert served.meta["platforms"] == ["cuda"]
+    assert served.meta["custom_ops"] == sorted(f"mydet::{k}" for k in want)
+    canvases = np.random.RandomState(3).randint(0, 256, (2, 64, 64, 3),
+                                                np.uint8)
+    live = det._run_batch(canvases, 0.005, det.cfg.nms_iou, 2)
+    kernels.reset_launches()
+    got = served._run(canvases, 0.005)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert launches == {k: want.get(k, 0) for k in launches}
+    for k in live:
+        np.testing.assert_array_equal(got[k], live[k], err_msg=k)
+    assert live["valid"].any()
+
+
+def test_flop_count_same_with_and_without_kernels(cuda):
+    """fcos at 64 float32: FlopCounterMode reads the fused bottleneck's
+    formula in place of the unfused convs, to the FLOP."""
+    from mydetection_tpu_torch.summary import summarize
+
+    with_k = summarize("fcos", input_size=64, device="cuda")
+    plain = summarize("fcos", input_size=64, device="cuda", use_pallas=False)
+    cpu = summarize("fcos", input_size=64, device="cpu")
+    assert with_k["gflops_per_image"] == plain["gflops_per_image"] \
+        == cpu["gflops_per_image"] > 0
+
+
+def test_plain_artifact_moves_to_the_card(cuda, tmp_path):
+    """An artifact exported on the CPU with use_pallas=False (the CLI's
+    --oracle-nms) may be loaded on the card: its program answers as a
+    `use_pallas=False` Detector on the card does, bit for bit, and
+    launches no kernel. Exported without it, the load refuses."""
+    from mydetection_tpu_torch.export import export_detector, load_exported
+
+    kw = dict(input_size=64, rng_seed=0, pre_nms=64)
+    cpu = Detector("yolov3", device="cpu", use_pallas=False, **kw)
+    path = str(tmp_path / "cpu.npz")
+    export_detector(cpu, path, batch_size=2)
+    served = load_exported(path, device="cuda")
+    assert served.meta["platforms"] == ["cpu"] and served.device.type == "cuda"
+    assert served.meta["use_pallas"] is False
+    cpu.use_pallas = True       # the same trace, as the kernels' route
+    kernel_route = str(tmp_path / "kernel_route.npz")
+    export_detector(cpu, kernel_route, batch_size=2)
+    with pytest.raises(ValueError, match="without use_pallas=False"):
+        load_exported(kernel_route, device="cuda")
+    plain = Detector("yolov3", device="cuda", use_pallas=False, **kw)
+    # the artifact keeps the CPU's NCHW weights; so must the reference,
+    # or cuDNN runs another layout
+    plain.model.to(memory_format=torch.contiguous_format)
+    canvases = np.random.RandomState(4).randint(0, 256, (2, 64, 64, 3),
+                                                np.uint8)
+    want = plain._run_batch(canvases, 0.3, plain.cfg.nms_iou, 2)
+    kernels.reset_launches()
+    got = served._run(canvases, 0.3)
+    torch.cuda.synchronize()
+    assert not any(fn.launches for fn in kernels.KERNELS)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
