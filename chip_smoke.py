@@ -148,11 +148,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
               under the profiler beside its CUDA-event time, the demo
               CLI on 8 JPEGs, a
               data-parallel Detector on the one card equal to the plain
-              one.
+              one;
+ 21. train dp the data-parallel fcos-608 train step, batch 16, over two
+              replicas on one card (one a card where there are more;
+              `mesh.local_devices` patched, `dp_devices`), 8 images
+              each: in float32 with TF32 off its first step against the
+              one-device step from the same weights and batch (loss
+              terms, gradients, update under the TRAIN_* gates, BN
+              running statistics within TRAIN_DP_BN_GATE), the replicas
+              bit-equal after it; in bf16 the trainable GN kernels 40
+              times each a replica, the first step's distance from the
+              one-device step (reported: bf16 roundings flip with the
+              order of the BN sums), both steps' ms and img/s timed in
+              turn, a cross-replica sum's host µs; then `train
+              --data-parallel` on phase 15's files, which must say it
+              runs over the replicas, launch the GN kernels 40 times a
+              replica a step, and write a checkpoint that a second run
+              resumes.
 
 Then one JSON line with a row per kernel, the card's name and power
 limit, and the result line `{"ok": true, "device": {...}}`. Needs no
-network and runs in about ten minutes, the kernels' build included.
+network and runs in about eight minutes, the kernels' build included.
 """
 
 from __future__ import annotations
@@ -327,6 +343,12 @@ QUANT_MAINS = (
 )
 QUANT_CALIB_IMAGES = 8      # main_canvases' first, letterboxed: one batch
 TRAIN_CLI_ITERS, TRAIN_CLI_RESUMED, TRAIN_CLI_FCOS_ITERS = 40, 50, 6
+# the data-parallel train phase: the BN running statistics of its step
+# against the one-device step's, max-scaled; the timed steps of each;
+# the CLI's iterations before and after its resume
+TRAIN_DP_BN_GATE = 1e-5
+TRAIN_DP_SIZE, TRAIN_DP_TIMED = 608, 4
+TRAIN_DP_CLI_ITERS, TRAIN_DP_CLI_RESUMED = 3, 5
 # the exported paths, bf16 on the card: (label, model, input size, batch
 # buckets, conf, int8, kernel launches of one batch-32 detect: the live
 # path's, as phases 13 and 13b count them)
@@ -965,11 +987,19 @@ def compare_train_step(got: dict, ref: dict, family: str) -> str:
                if k.startswith(TRAIN_HEAD_OUT[family]))
     if near > TRAIN_HEAD_OUT_GATE:
         bad.append(f"head output gradients max-scaled {near:.3g}")
-    cos = min((cosine(got[w][k], ref[w][k]), f"{w} {k}")
-              for w in ("grads", "delta") for k in ref[w])
+    cos, l2 = (1.0, ""), 0.0
+    for w in ("grads", "delta"):    # one float64 pass over each pair
+        num = den = 0.0
+        for k, r in ref[w].items():
+            a = np.asarray(got[w][k], np.float64).ravel()
+            b = np.asarray(r, np.float64).ravel()
+            aa, ab, bb = float(a @ a), float(a @ b), float(b @ b)
+            cos = min(cos, (ab / (aa ** 0.5 * bb ** 0.5 + 1e-300), f"{w} {k}"))
+            num += aa - 2 * ab + bb
+            den += bb
+        l2 = max(l2, (max(num, 0.0) / den) ** 0.5)
     if cos[0] < TRAIN_COSINE_GATE:
         bad.append(f"cosine {cos}")
-    l2 = max(rel_l2(got[w], ref[w]) for w in ("grads", "delta"))
     if l2 > TRAIN_L2_GATE:
         bad.append(f"relative L2 {l2:.3g}")
     bn = max(max_scaled(got["bufs"][k], v) for k, v in ref["bufs"].items())
@@ -983,13 +1013,33 @@ def compare_train_step(got: dict, ref: dict, family: str) -> str:
             f"statistics {bn:.3g}")
 
 
+def first_step(step, data) -> dict:
+    """One step of `step` (a `TrainStep` or `DataParallelTrainStep`) on
+    `data` at PARITY_LR, phase by phase, with every launch count reset
+    just before: what `compare_train_step` reads ("terms" as floats,
+    "grads", "delta" (the update), "bufs" (BN running statistics), as
+    float32 numpy on the host) and the "launches"."""
+    from mydetection_tpu_torch import kernels
+
+    kernels.reset_launches()
+    terms = step.forward(*step.batch(*data))
+    grads = step.backward(terms)
+    p0 = {k: p.detach().clone() for k, p in step.params.items()}
+    step.update(grads, PARITY_LR)
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    return {"terms": {k: float(v.detach()) for k, v in terms.items()},
+            "grads": {k: host(g) for k, g in grads.items()},
+            "delta": {k: host(p - p0[k]) for k, p in step.params.items()},
+            "bufs": {k: host(b).copy() for k, b in step.model.named_buffers()},
+            "launches": read_launches()}
+
+
 def parity_train_run(family: str, device: str, steps: int = 4) -> dict:
     """The small train step of `family` on `device` from `init_weights(seed
     0)` and `train_batch(0, ...)` (rapid: one class, cxcywhθ GT): the
     first step phase by phase (terms, gradients, update, BN statistics,
     the kernels' launches), then `steps - 1` more on the same batch;
     "totals" has every step's loss."""
-    from mydetection_tpu_torch import kernels
     from mydetection_tpu_torch.models.layers import init_weights
     from mydetection_tpu_torch.registry import get_model
     from mydetection_tpu_torch.training import make_train_step
@@ -1001,17 +1051,7 @@ def parity_train_run(family: str, device: str, steps: int = 4) -> dict:
     step = make_train_step(model, input_size=PARITY_SIZE, device=device)
     data = train_batch(0, PARITY_BATCH, PARITY_SIZE, classes,
                        rotated=family == "rapid")
-    kernels.reset_launches()
-    terms = step.forward(*step.batch(*data))
-    grads = step.backward(terms)
-    p0 = {k: p.detach().clone() for k, p in step.params.items()}
-    step.update(grads, PARITY_LR)
-    host = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
-    out = {"terms": {k: float(v.detach()) for k, v in terms.items()},
-           "grads": {k: host(g) for k, g in grads.items()},
-           "delta": {k: host(p - p0[k]) for k, p in step.params.items()},
-           "bufs": {k: host(b) for k, b in model.named_buffers()},
-           "launches": {fn.__name__: fn.launches for fn in kernels.KERNELS}}
+    out = first_step(step, data)
     out["totals"] = [out["terms"]["total"]] + [
         float(step(*data, PARITY_LR)["total"]) for _ in range(steps - 1)]
     return out
@@ -2723,6 +2763,187 @@ def phase_train_cli(data: dict, smi: str, synthetic: dict) -> None:
           f"train main: {synthetic['fcos']:.1f}); on {smi}", flush=True)
 
 
+def dp_devices() -> list:
+    """The data-parallel phase's replicas: two on the one card, or one a
+    card."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 2)
+
+
+@contextlib.contextmanager
+def local_devices_as(devices: list):
+    """`parallel.mesh.local_devices` returns `devices` for the duration."""
+    from mydetection_tpu_torch.parallel import mesh
+
+    saved = mesh.local_devices
+    mesh.local_devices = lambda: list(devices)
+    try:
+        yield
+    finally:
+        mesh.local_devices = saved
+
+
+def timed_steps(step, data, lr: float) -> list[float]:
+    """Host-clock seconds of TRAIN_DP_TIMED whole steps after one
+    warm-up, each synchronised."""
+    out = []
+    for i in range(TRAIN_DP_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*data, lr)
+        torch.cuda.synchronize()
+        if i:
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def dp_pair(size: int, dtype) -> tuple:
+    """The one-device fcos train step and the data-parallel one over
+    `dp_devices()`, each on its own model from `init_weights(seed 0)`."""
+    from mydetection_tpu_torch.models.layers import init_weights
+    from mydetection_tpu_torch.parallel.mesh import make_mesh
+    from mydetection_tpu_torch.registry import get_model
+    from mydetection_tpu_torch.training import make_train_step
+
+    def fcos():
+        model = get_model("fcos", input_size=size, compute_dtype=dtype)
+        init_weights(model, 0)
+        return model
+
+    one = make_train_step(fcos(), input_size=size)
+    with local_devices_as(dp_devices()):
+        dp = make_train_step(fcos(), input_size=size, mesh=make_mesh())
+    return one, dp
+
+
+def lockstep_us(devices: list, sums: int = 106) -> float:
+    """Host µs a cross-replica sum costs under `mesh.lockstep` over
+    `devices` (a (256,) float32 tensor a replica, as a BatchNorm's
+    channel sums), median of 3 runs of `sums` sums: the fcos forward
+    takes 106, two a BatchNorm of its ResNet-50."""
+    from mydetection_tpu_torch.parallel import mesh
+
+    def replica(x):
+        group, rank = mesh.replica_group()
+        for _ in range(sums):
+            [x] = group.all_sum(rank, [x])
+        return x
+
+    runs = []
+    for _ in range(3):
+        xs = [torch.ones(256, device=d) for d in devices]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.lockstep(devices, [lambda x=x: replica(x) for x in xs])
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / sums * 1e6)
+    return float(np.median(runs))
+
+
+def phase_train_dp(data: dict, smi: str) -> None:
+    """The data-parallel fcos-608 train step at batch TRAIN_BATCH over
+    `dp_devices()` against the one-device step from the same seeded
+    weights and batch: first in float32 with TF32 off, under the
+    TRAIN_* gates and TRAIN_DP_BN_GATE; then in bf16, its launches,
+    and both steps timed in turn; then the train CLI with
+    `--data-parallel` and a resume."""
+    from mydetection_tpu_torch import train
+    from mydetection_tpu_torch.evaluate import tf32_off
+    from mydetection_tpu_torch.training import burn_in_lr
+
+    devices = dp_devices()
+    n = len(devices)
+    per_step = {"bias_gn_relu_fwd_stats": 40, "bias_gn_relu_bwd": 40}
+    size = TRAIN_DP_SIZE
+    batch = train_batch(2, TRAIN_BATCH, size, 80)
+    with tf32_off("cuda"):
+        one, dp = dp_pair(size, torch.float32)
+        ref = first_step(one, batch)
+        del one
+        got = first_step(dp, batch)
+    check_launches("train dp step", got["launches"],
+                   {k: v * n for k, v in per_step.items()})
+    check_launches("train one-device step", ref["launches"], per_step)
+    report = compare_train_step(got, ref, "fcos")
+    bn = max(max_scaled(got["bufs"][k], v) for k, v in ref["bufs"].items())
+    if bn > TRAIN_DP_BN_GATE:
+        raise AssertionError(f"train dp: BN running statistics max-scaled "
+                             f"{bn:.3g} from the one-device step's")
+    states = [list(m.state_dict().values()) for m in dp.replicas]
+    if not all(torch.equal(a, b) for other in states[1:]
+               for a, b in zip(states[0], other)):
+        raise AssertionError("train dp: the replicas differ after the step")
+    print(f"train dp: fcos-{size} float32 (TF32 off) batch {TRAIN_BATCH} "
+          f"over {n} replicas on {sorted({str(d) for d in devices})}, "
+          f"{TRAIN_BATCH // n} images each, against the one-device step "
+          f"from the same seeded weights and batch, first step at lr "
+          f"{PARITY_LR}: {report}; BN statistics {bn:.3g} (gate "
+          f"{TRAIN_DP_BN_GATE}); replicas bit-equal after it; launches "
+          f"{got['launches']}", flush=True)
+    del dp, ref, got
+    torch.cuda.empty_cache()
+
+    one, dp = dp_pair(size, torch.bfloat16)
+    ref = first_step(one, batch)
+    got = first_step(dp, batch)
+    check_launches("train dp step bf16", got["launches"],
+                   {k: v * n for k, v in per_step.items()})
+    terms = max(abs(got["terms"][k] - v) / abs(v)
+                for k, v in ref["terms"].items())
+    cos = min(cosine(got["grads"][k], v) for k, v in ref["grads"].items())
+    lr = burn_in_lr(TRAIN_WARMUP + TRAIN_TIMED + 1, base_lr=0.01)
+    t_one, t_dp = [], []
+    for _ in range(2):          # in turn, so both see the same card
+        t_one += timed_steps(one, batch, lr)
+        t_dp += timed_steps(dp, batch, lr)
+    ms_one, ms_dp = np.median(t_one) * 1e3, np.median(t_dp) * 1e3
+    print(f"train dp: bf16 batch {TRAIN_BATCH}, launches {got['launches']};"
+          f" first step against the one-device step: loss terms within "
+          f"{terms:.3g} relative, least gradient cosine {cos:.6f}, relative "
+          f"L2 {rel_l2(got['grads'], ref['grads']):.3g}; step median "
+          f"{ms_dp:.2f} ms ({TRAIN_BATCH / ms_dp * 1e3:.1f} img/s) "
+          f"data-parallel, {ms_one:.2f} ms ({TRAIN_BATCH / ms_one * 1e3:.1f}"
+          f" img/s) one device, {2 * TRAIN_DP_TIMED} steps each timed in "
+          f"turn on the host clock (min {min(t_dp) * 1e3:.2f} / "
+          f"{min(t_one) * 1e3:.2f}); a cross-replica sum "
+          f"{lockstep_us(devices):.1f} µs of host time (106 a forward); "
+          f"on {smi}", flush=True)
+    del one, dp, ref, got
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(data["root"], "weights_dp")
+    args = ["--model", "fcos", "--ann", data["ann"], "--img-dir",
+            data["root"], "--batch-size", str(TRAIN_BATCH), "--lr",
+            str(TRAIN_CLI_LR), "--burn-in", str(TRAIN_CLI_BURN_IN),
+            "--sizes", str(size), "--log-every", "1", "--ckpt-dir", ck,
+            "--data-parallel"]
+    first = os.path.join(ck, f"fcos_{TRAIN_DP_CLI_ITERS}.npz")
+    with local_devices_as(devices):
+        _, out, wall = run_cli(train.main, args + [
+            "--iterations", str(TRAIN_DP_CLI_ITERS)])
+        check_launches("train cli --data-parallel", read_launches(), {
+            k: v * n * TRAIN_DP_CLI_ITERS for k, v in per_step.items()})
+        _, out2, wall2 = run_cli(train.main, args + [
+            "--iterations", str(TRAIN_DP_CLI_RESUMED), "--resume", first])
+    said = f"data-parallel over {n} devices"
+    rows = _metrics(ck, "fcos")
+    if (said not in out or said not in out2 or not os.path.exists(first)
+            or f"at iteration {TRAIN_DP_CLI_ITERS}" not in out2
+            or not os.path.exists(os.path.join(
+                ck, f"fcos_{TRAIN_DP_CLI_RESUMED}.npz"))
+            or len(rows) != TRAIN_DP_CLI_RESUMED
+            or not all(np.isfinite(v) for r in rows for v in r.values())):
+        raise AssertionError(f"train cli --data-parallel: rows {rows}")
+    print(f"train dp cli: fcos-{size} bf16 batch {TRAIN_BATCH} from files "
+          f"--data-parallel over {n} replicas: {TRAIN_DP_CLI_ITERS} "
+          f"iterations in {wall:.1f} s, checkpoint resumed to "
+          f"{TRAIN_DP_CLI_RESUMED} in {wall2:.1f} s, the GN kernels "
+          f"{per_step} a replica a step; total "
+          f"{[round(r['total'], 3) for r in rows]}, img/s "
+          f"{[r['img_per_sec'] for r in rows]}; on {smi}", flush=True)
+
+
 @torch.no_grad()
 def gn_fwd_stats_row(captured: dict) -> dict:
     """The forward-with-statistics kernel at the train main path's own
@@ -3491,6 +3712,8 @@ def main() -> int:
         phase_evaluate(data, smi)
         phase_evaluate_quant(data, smi)
         phase_train_cli(data, smi, synthetic)
+        torch.cuda.empty_cache()
+        phase_train_dp(data, smi)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as work:
             phase_export(work, smi)

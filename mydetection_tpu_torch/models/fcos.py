@@ -279,9 +279,24 @@ def loss(cls_logits: torch.Tensor, ltrb_pred: torch.Tensor,
          gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
          num_classes: int = 80) -> dict:
     """Focal (cls) + centerness-weighted GIoU (box) + BCE (centerness)
-    under the FCOS assignment, `fcos.py::loss`. gt_boxes (B, M, 4)
-    cxcywh net pixels, padded, with gt_valid (B, M) bool and
-    gt_classes (B, M) int. Returns {"cls", "box", "ctr", "total"}."""
+    under the FCOS assignment, `fcos.py::loss`: `loss_from_sums` of
+    `loss_sums`. Returns {"cls", "box", "ctr", "total"}."""
+    return loss_from_sums(loss_sums(cls_logits, ltrb_pred, ctr_logits,
+                                    locations, strides, gt_boxes, gt_classes,
+                                    gt_valid, num_classes=num_classes))
+
+
+def loss_sums(cls_logits: torch.Tensor, ltrb_pred: torch.Tensor,
+              ctr_logits: torch.Tensor, locations: torch.Tensor,
+              strides: torch.Tensor, gt_boxes: torch.Tensor,
+              gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+              num_classes: int = 80) -> dict:
+    """The FCOS loss's sums and normalisers, `fcos.py::loss`: focal,
+    centerness-weighted GIoU and centerness BCE summed over the batch,
+    the number of positives and the box term's weight (the positives'
+    centerness targets). gt_boxes (B, M, 4) cxcywh net pixels, padded,
+    with gt_valid (B, M) bool and gt_classes (B, M) int. Returns {"cls",
+    "box", "ctr", "num_pos", "box_weight"}."""
     gt_xyxy = cxcywh_to_xyxy(gt_boxes)
     positive, matched, tgt_ltrb, ctr_tgt = assign(locations, strides,
                                                   gt_xyxy, gt_valid)
@@ -291,16 +306,26 @@ def loss(cls_logits: torch.Tensor, ltrb_pred: torch.Tensor,
     onehot = (tgt_cls[..., None] == torch.arange(
         num_classes, device=tgt_cls.device)).float()
     cls_onehot = onehot * positive[..., None]
-    num_pos = torch.clamp(positive.sum().float(), min=1.0)
-    cls_loss = focal_loss(cls_logits, cls_onehot).sum() / num_pos
+    cls_sum = focal_loss(cls_logits, cls_onehot).sum()
 
     pred_xyxy = decode_boxes(ltrb_pred, locations)
     tgt_xyxy = decode_boxes(tgt_ltrb, locations)
     g = giou_loss(pred_xyxy, tgt_xyxy)                        # (B, N)
     w = ctr_tgt * positive
-    box_loss = (g * w).sum() / torch.clamp(w.sum(), min=1e-6)
 
     ctr_bce = bce_with_logits(ctr_logits, ctr_tgt)
-    ctr_loss = (ctr_bce * positive).sum() / num_pos
+    return {"cls": cls_sum, "box": (g * w).sum(),
+            "ctr": (ctr_bce * positive).sum(),
+            "num_pos": positive.sum().float(), "box_weight": w.sum()}
+
+
+def loss_from_sums(sums: dict) -> dict:
+    """`loss_sums`' terms over their normalisers, which a data-parallel
+    step first sums over the replicas: cls and ctr by max(positives, 1),
+    box by max(its weight, 1e-6)."""
+    num_pos = torch.clamp(sums["num_pos"], min=1.0)
+    cls_loss = sums["cls"] / num_pos
+    box_loss = sums["box"] / torch.clamp(sums["box_weight"], min=1e-6)
+    ctr_loss = sums["ctr"] / num_pos
     return {"cls": cls_loss, "box": box_loss, "ctr": ctr_loss,
             "total": cls_loss + box_loss + ctr_loss}

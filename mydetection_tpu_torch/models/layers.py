@@ -10,7 +10,8 @@ A port of `mydetection_tpu/models/layers.py` that keeps its arithmetic:
     statistics in eval mode, from the batch's (float32 mean and biased
     variance, gradients through both) in train mode, which also moves
     the running statistics by momentum 0.9 toward the batch mean and
-    the unbiased (n/(n-1)) variance;
+    the unbiased (n/(n-1)) variance; in a data-parallel step the batch
+    is the global one, its sums taken across the replicas;
   * LeakyReLU is `where(x >= 0, x, 0.1x)`;
   * max pooling pads symmetrically with -inf (torch's MaxPool2d);
   * the ResNet input is `x/255`, then `(x - mean) / std` with ImageNet's
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mydetection_tpu_torch.parallel.mesh import replica_group
 
 LEAKY_SLOPE = 0.1
 BN_EPS = 1e-5
@@ -113,9 +116,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         dims = (0, 2, 3)
         n = x.numel() // x.shape[1]
-        # jnp.mean and jnp.var: sums divided by n, the variance two-pass
-        mean = xf.sum(dim=dims) / n
-        var = ((xf - mean[:, None, None]) ** 2).sum(dim=dims) / n
+        # jnp.mean and jnp.var: sums divided by n, the variance two-pass;
+        # in a data-parallel step both sums and n span every replica
+        group = replica_group()
+        total = xf.sum(dim=dims)
+        if group is not None:
+            total, n = group[0].all_sum(group[1], [total, n])
+        mean = total / n
+        sq = ((xf - mean[:, None, None]) ** 2).sum(dim=dims)
+        if group is not None:
+            [sq] = group[0].all_sum(group[1], [sq])
+        var = sq / n
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)

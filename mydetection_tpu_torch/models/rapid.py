@@ -73,17 +73,28 @@ def enclose(boxes5: torch.Tensor) -> torch.Tensor:
 def loss(raw_outputs: Sequence[torch.Tensor], gt_boxes5: torch.Tensor,
          gt_valid: torch.Tensor, *, input_size: int, anchors=ANCHORS
          ) -> dict:
-    """RAPiD loss over padded GT, `rapid.py::loss`: YOLOv3's assignment
+    """RAPiD loss over padded GT, `rapid.py::loss`: `loss_from_sums` of
+    `loss_sums`. Returns {"conf", "box", "angle", "total"}."""
+    return loss_from_sums(loss_sums(raw_outputs, gt_boxes5, gt_valid,
+                                    input_size=input_size, anchors=anchors))
+
+
+def loss_sums(raw_outputs: Sequence[torch.Tensor], gt_boxes5: torch.Tensor,
+              gt_valid: torch.Tensor, *, input_size: int, anchors=ANCHORS
+              ) -> dict:
+    """The RAPiD loss's sums, `rapid.py::loss`: YOLOv3's assignment
     and box terms (`yolov3.loss`), a periodic L1 (period π) between
     (sigmoid(t_θ) − 0.5)·π and the GT angle on the assigned predictions,
     and BCE confidence whose negatives drop where the hull of the
     decoded box overlaps a valid GT's hull by IoU > IGNORE_THRES. The
     angle target rides in the same scatter as the others, so a GT that
-    wins a collision wins every channel. conf is divided by B, box and
-    angle by max(positives, 1).
+    wins a collision wins every channel. These are the batch's sums,
+    with its normalisers: the positives and B (`loss_from_sums` divides
+    conf by B, box and angle by max(positives, 1)).
 
     gt_boxes5: (B, M, 5) cxcywhθ (radians) in net pixels, gt_valid
-    (B, M) bool. Returns {"conf", "box", "angle", "total"}."""
+    (B, M) bool. Returns {"conf", "box", "angle", "num_pos", "b"}, b an
+    int."""
     b = gt_valid.shape[0]
     best = best_anchors(gt_boxes5[..., 2:4], anchors)
     with torch.no_grad():
@@ -117,9 +128,18 @@ def loss(raw_outputs: Sequence[torch.Tensor], gt_boxes5: torch.Tensor,
         num_pos = num_pos + assigned.sum()
         offset += n
 
-    norm = torch.clamp(torch.as_tensor(num_pos, dtype=torch.float32),
+    return {"conf": total_conf, "box": total_box, "angle": total_angle,
+            "num_pos": num_pos, "b": b}
+
+
+def loss_from_sums(sums: dict) -> dict:
+    """`loss_sums`' terms divided by their normalisers, which a
+    data-parallel step first sums over the replicas: conf by B, box and
+    angle by max(positives, 1)."""
+    norm = torch.clamp(torch.as_tensor(sums["num_pos"], dtype=torch.float32),
                        min=1.0)
-    out = {"conf": total_conf / (b if b else 1), "box": total_box / norm,
-           "angle": total_angle / norm}
+    b = sums["b"]
+    out = {"conf": sums["conf"] / (b if b else 1), "box": sums["box"] / norm,
+           "angle": sums["angle"] / norm}
     out["total"] = out["conf"] + out["box"] + out["angle"]
     return out

@@ -274,22 +274,42 @@ def loss(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
          gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
          num_classes: int = 80) -> dict:
     """Focal (cls) + smooth-L1 (box) under `assign`,
-    `retinanet.py::loss`: focal loss over positive | negative anchors
-    and smooth-L1 of the deltas against `encode` of the matched GT on
-    the positives, both divided by max(positives, 1).
+    `retinanet.py::loss`: `loss_from_sums` of `loss_sums`. Returns
+    {"cls", "box", "total"}."""
+    return loss_from_sums(loss_sums(cls_logits, box_deltas, anchors_cxcywh,
+                                    gt_boxes, gt_classes, gt_valid,
+                                    num_classes=num_classes))
+
+
+def loss_sums(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
+              anchors_cxcywh: torch.Tensor, gt_boxes: torch.Tensor,
+              gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+              num_classes: int = 80) -> dict:
+    """The RetinaNet loss's sums, `retinanet.py::loss`: focal loss over
+    positive | negative anchors and smooth-L1 of the deltas against
+    `encode` of the matched GT on the positives, with the number of
+    positives (`loss_from_sums` divides both by max(positives, 1)).
 
     cls_logits (B, N, C) float32, box_deltas (B, N, 4), anchors (N, 4)
     cxcywh; gt_boxes (B, M, 4) cxcywh net pixels, gt_classes (B, M)
-    int, gt_valid (B, M) bool. Returns {"cls", "box", "total"}."""
+    int, gt_valid (B, M) bool. Returns {"cls", "box", "num_pos"}."""
     positive, negative, matched = assign(anchors_cxcywh, gt_boxes, gt_valid)
     tgt_cls = take_along_dim(gt_classes, matched)               # (B, N)
     cls_onehot = ((tgt_cls[..., None] == torch.arange(
         num_classes, device=tgt_cls.device)) & positive[..., None]).float()
     fl = focal_loss(cls_logits, cls_onehot)                     # (B, N, C)
-    num_pos = torch.clamp(positive.sum().float(), min=1.0)
-    cls_loss = (fl * (positive | negative)[..., None]).sum() / num_pos
+    cls_sum = (fl * (positive | negative)[..., None]).sum()
 
     reg_tgt = encode(take_along_dim(gt_boxes, matched), anchors_cxcywh[None])
     reg = smooth_l1(box_deltas, reg_tgt).sum(-1)                # (B, N)
-    box_loss = (reg * positive).sum() / num_pos
+    return {"cls": cls_sum, "box": (reg * positive).sum(),
+            "num_pos": positive.sum().float()}
+
+
+def loss_from_sums(sums: dict) -> dict:
+    """`loss_sums`' terms divided by max(positives, 1), the positives
+    first summed over the replicas in a data-parallel step."""
+    num_pos = torch.clamp(sums["num_pos"], min=1.0)
+    cls_loss = sums["cls"] / num_pos
+    box_loss = sums["box"] / num_pos
     return {"cls": cls_loss, "box": box_loss, "total": cls_loss + box_loss}

@@ -273,19 +273,31 @@ def level_targets(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
 def loss(raw_outputs: Sequence[torch.Tensor], gt_boxes: torch.Tensor,
          gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
          input_size: int, num_classes: int = 80, anchors=ANCHORS) -> dict:
-    """YOLOv3 loss over padded GT, `yolov3.py::loss`: each GT goes to
+    """YOLOv3 loss over padded GT, `yolov3.py::loss`: `loss_from_sums`
+    of `loss_sums`. Returns {"obj", "box", "cls", "total"}."""
+    return loss_from_sums(loss_sums(raw_outputs, gt_boxes, gt_classes,
+                                    gt_valid, input_size=input_size,
+                                    num_classes=num_classes, anchors=anchors))
+
+
+def loss_sums(raw_outputs: Sequence[torch.Tensor], gt_boxes: torch.Tensor,
+              gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+              input_size: int, num_classes: int = 80, anchors=ANCHORS
+              ) -> dict:
+    """The YOLOv3 loss's sums, `yolov3.py::loss`: each GT goes to
     its best wh-IoU anchor of all nine, at the cell of its centre;
     BCE on sigmoid(t_xy) against the in-cell offset and half the squared
     error of t_wh against log(gt_wh / anchor), both weighted by
     2 − w·h/input_size²; BCE objectness, whose negatives drop where the
     decoded box overlaps a valid GT by IoU > IGNORE_THRES; BCE classes
-    on the assigned predictions. obj is divided by B, box and cls by
-    max(positives, 1).
+    on the assigned predictions. These are the batch's sums, with its
+    normalisers: the positives and B (`loss_from_sums` divides obj by
+    B, box and cls by max(positives, 1)).
 
     raw_outputs: [P5, P4, P3] raw (B, H, W, 3·(5+C)) maps (cast to
     float32 per level); gt_boxes (B, M, 4) cxcywh in net pixels,
     gt_classes (B, M) int, gt_valid (B, M) bool. Returns {"obj", "box",
-    "cls", "total"}."""
+    "cls", "num_pos", "b"}, b an int."""
     b = gt_classes.shape[0]
     best = best_anchors(gt_boxes[..., 2:4], anchors)
     with torch.no_grad():
@@ -321,9 +333,18 @@ def loss(raw_outputs: Sequence[torch.Tensor], gt_boxes: torch.Tensor,
         num_pos = num_pos + assigned.sum()
         offset += n
 
-    norm = torch.clamp(torch.as_tensor(num_pos, dtype=torch.float32),
+    return {"obj": total_obj, "box": total_box, "cls": total_cls,
+            "num_pos": num_pos, "b": b}
+
+
+def loss_from_sums(sums: dict) -> dict:
+    """`loss_sums`' terms divided by their normalisers, which a
+    data-parallel step first sums over the replicas: obj by B, box and
+    cls by max(positives, 1)."""
+    norm = torch.clamp(torch.as_tensor(sums["num_pos"], dtype=torch.float32),
                        min=1.0)
-    out = {"obj": total_obj / (b if b else 1), "box": total_box / norm,
-           "cls": total_cls / norm}
+    b = sums["b"]
+    out = {"obj": sums["obj"] / (b if b else 1), "box": sums["box"] / norm,
+           "cls": sums["cls"] / norm}
     out["total"] = out["obj"] + out["box"] + out["cls"]
     return out

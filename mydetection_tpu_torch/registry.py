@@ -194,31 +194,52 @@ def loss(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
     step's own input-size bucket (None: the config's). Run the model in
     train mode for batch-statistics BatchNorm, as
     `forward_raw(train=True)` does; the heads run without the
-    max-over-classes gate."""
+    max-over-classes gate. It is `loss_from_sums` of `loss_sums`."""
+    return loss_from_sums(model.config, loss_sums(
+        model, images, gt_boxes, gt_classes, gt_valid, input_size=input_size))
+
+
+def loss_sums(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
+              gt_classes: torch.Tensor, gt_valid: torch.Tensor, *,
+              input_size: int | None = None) -> dict:
+    """`loss`'s inputs → the family's `loss_sums`: each term summed over
+    the batch, and the normalisers that divide them ("num_pos" for every
+    family, "b" for yolov3 and rapid, "box_weight" for fcos). A
+    data-parallel step sums these over its replicas before
+    `loss_from_sums`, so every term is normalised over the global
+    batch."""
     cfg = model.config
     size = input_size or cfg.input_size
     if cfg.family == "yolov3":
         anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
-        return yolov3.loss(model(images), gt_boxes, gt_classes, gt_valid,
-                           input_size=size, num_classes=cfg.num_classes,
-                           anchors=anchors)
+        return yolov3.loss_sums(model(images), gt_boxes, gt_classes, gt_valid,
+                                input_size=size, num_classes=cfg.num_classes,
+                                anchors=anchors)
     if cfg.family == "rapid":
         anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
-        return rapid.loss(model(images), gt_boxes, gt_valid,
-                          input_size=size, anchors=anchors)
+        return rapid.loss_sums(model(images), gt_boxes, gt_valid,
+                               input_size=size, anchors=anchors)
     if cfg.family == "retinanet":
         cls_logits, deltas = model(images, with_gate=False)
         anchors = retinanet.generate_anchors(int(images.shape[1]),
                                              images.device)
-        return retinanet.loss(cls_logits.float(), deltas, anchors, gt_boxes,
-                              gt_classes, gt_valid,
-                              num_classes=cfg.num_classes)
+        return retinanet.loss_sums(cls_logits.float(), deltas, anchors,
+                                   gt_boxes, gt_classes, gt_valid,
+                                   num_classes=cfg.num_classes)
     cls_logits, ltrb, ctr = model(images, with_gate=False)
     locations, strides = fcos.generate_locations(int(images.shape[1]),
                                                  images.device)
-    return fcos.loss(cls_logits.float(), ltrb, ctr, locations, strides,
-                     gt_boxes, gt_classes, gt_valid,
-                     num_classes=cfg.num_classes)
+    return fcos.loss_sums(cls_logits.float(), ltrb, ctr, locations, strides,
+                          gt_boxes, gt_classes, gt_valid,
+                          num_classes=cfg.num_classes)
+
+
+def loss_from_sums(cfg: ModelConfig, sums: dict) -> dict:
+    """The loss terms of `cfg`'s family from `loss_sums` (one batch's, or
+    summed over replicas)."""
+    family = {"yolov3": yolov3, "rapid": rapid, "retinanet": retinanet,
+              "fcos": fcos}[cfg.family]
+    return family.loss_from_sums(sums)
 
 
 def _build_yolov3(cfg: ModelConfig) -> nn.Module:

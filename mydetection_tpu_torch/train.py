@@ -18,7 +18,11 @@ Example:
         --batch-size 16 --iterations 5000
 
 `--device` defaults to cuda (an error when no GPU is visible); pass
-`--device cpu` to train on the CPU. Weights start from
+`--device cpu` to train on the CPU. `--data-parallel` splits each batch
+over every device of `parallel.mesh.make_mesh()` when there is more
+than one, as the JAX CLI's flag does over `jax.devices()`: one global
+step (`training.DataParallelTrainStep`), checkpoints and validation
+from the first replica; with one device it is the single-device run. Weights start from
 `init_weights(model, --seed)`, which draws other values than the JAX
 package's `fast_init` of the same seed: start both packages from one
 file (`--resume`, `--pretrained-backbone`) to compare them.
@@ -69,6 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--val-img-dir", default=None)
     ap.add_argument("--val-every", type=int, default=0)
     ap.add_argument("--val-max-images", type=int, default=500)
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="split each batch over every local device "
+                         "(one global step; no-op with one device)")
     ap.add_argument("--float32", action="store_true",
                     help="float32 compute, TF32 off on the card "
                          "(default bf16)")
@@ -95,6 +102,7 @@ def _train(args) -> int:
     from mydetection_tpu_torch.data.coco import CocoDataset
     from mydetection_tpu_torch.data.loader import TrainLoader
     from mydetection_tpu_torch.models.layers import init_weights
+    from mydetection_tpu_torch.parallel.mesh import make_mesh
     from mydetection_tpu_torch.registry import default_config, get_model
     from mydetection_tpu_torch.training import burn_in_lr, make_train_step
 
@@ -113,6 +121,15 @@ def _train(args) -> int:
                                   cfg.input_size,
                                   cfg.input_size + 96})
     device = torch.device(args.device)
+    mesh = make_mesh() if args.data_parallel else []
+    if len(mesh) > 1:
+        if device.type != mesh[0].type:
+            raise SystemExit(f"--data-parallel runs on the local devices "
+                             f"{[str(d) for d in mesh]}, not --device "
+                             f"{args.device}")
+        device = mesh[0]
+    else:
+        mesh = None
     print(f"model={cfg.name} classes={cfg.num_classes} sizes={sizes} "
           f"dataset={len(ds)} imgs device={device}")
 
@@ -130,13 +147,15 @@ def _train(args) -> int:
                               strict=True)
         print(f"backbone initialized from {args.pretrained_backbone}")
 
-    # one step per size bucket, sharing the model and one velocity
-    steps = {s: make_train_step(model, input_size=s, momentum=args.momentum,
-                                weight_decay=args.weight_decay, device=device)
-             for s in sizes}
-    step0 = steps[sizes[0]]
-    for s in sizes:
-        steps[s].velocity = step0.velocity
+    # one step per size bucket, sharing the model (or the replicas) and
+    # one velocity
+    step0 = make_train_step(model, input_size=sizes[0],
+                            momentum=args.momentum,
+                            weight_decay=args.weight_decay, device=device,
+                            mesh=mesh)
+    steps = {s: step0.at_size(s) for s in sizes}
+    if mesh:
+        print(f"data-parallel over {len(mesh)} devices")
     start_iter = 0
     if args.resume:
         start_iter = step0.resume(args.resume)["step"] or 0

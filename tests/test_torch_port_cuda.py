@@ -4,7 +4,9 @@ backward), rotated-NMS suppress, conv chain, row gather and fused
 bottleneck kernels against their plain versions, the CUDA Detectors
 (yolov3, fcos, rapid, retinanet, retinanet_r101) against the CPU ones,
 the CUDA train steps of fcos, yolov3, rapid and retinanet against the
-CPU ones, and a RetinaNet subnet's towers under autograd. Every test
+CPU ones, the data-parallel fcos step on two replicas of one card
+against the one-device step, and a RetinaNet subnet's towers under
+autograd. Every test
 skips on a host without a GPU. This file imports no JAX, so it runs
 where JAX is not installed:
 
@@ -27,6 +29,8 @@ from chip_smoke import (  # noqa: E402
     GN_GROUPS,
     OLD_LARGEST_NMS_K,
     OLD_LARGEST_ROTATED_K,
+    PARITY_CLASSES,
+    PARITY_SIZE,
     TRAIN_FAMILIES,
     bottleneck_case,
     bottleneck_error,
@@ -34,6 +38,9 @@ from chip_smoke import (  # noqa: E402
     check_gn_train_case,
     compare_rotated,
     compare_train_step,
+    dp_devices,
+    dp_pair,
+    first_step,
     gn_case,
     gn_error,
     gn_train_case,
@@ -48,6 +55,7 @@ from chip_smoke import (  # noqa: E402
     tower_case,
     tower_error,
     tower_ref_error,
+    train_batch,
 )
 from mydetection_tpu_torch import Detector, kernels  # noqa: E402
 from mydetection_tpu_torch.kernels.bottleneck import (  # noqa: E402
@@ -511,6 +519,43 @@ def test_cuda_train_step_matches_cpu(cuda, family):
         want.update(bias_gn_relu_fwd_stats=40, bias_gn_relu_bwd=40)
     assert gpu["launches"] == want
     assert gpu["totals"][-1] < gpu["totals"][0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_data_parallel_fcos_step_equals_one_device(cuda, dtype):
+    """fcos at 64², batch 4, over `dp_devices()` (two replicas on one
+    card, one a card where there are more) against the one-device step
+    from the same seeded weights and batch: each replica launches each
+    trainable GN kernel 40 times; in float32 (TF32 off) the first
+    step's loss terms, gradients, update and BN statistics are within
+    the TRAIN_* gates; the replicas are bit-equal after it; in bf16 the
+    loss terms are finite."""
+    n = len(dp_devices())
+    batch = train_batch(0, 4, PARITY_SIZE, PARITY_CLASSES)
+    dt = getattr(torch, dtype)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one, dp = dp_pair(PARITY_SIZE, dt)
+        ref = first_step(one, batch)
+        got = first_step(dp, batch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    per_step = {fn.__name__: 0 for fn in kernels.KERNELS}
+    per_step.update(bias_gn_relu_fwd_stats=40, bias_gn_relu_bwd=40)
+    assert ref["launches"] == per_step
+    assert got["launches"] == {k: n * v for k, v in per_step.items()}
+    states = [m.state_dict() for m in dp.replicas]
+    for other in states[1:]:
+        for k, v in states[0].items():
+            assert torch.equal(v, other[k]), k
+    if dtype == "float32":
+        compare_train_step(got, ref, "fcos")
+    else:
+        assert np.isfinite(list(got["terms"].values())).all()
 
 
 def test_fcos_detect_launches_no_train_kernel(cuda):

@@ -109,6 +109,13 @@ def det(weights):
     return Detector("yolov3", weights_path=weights, **CONFIG)
 
 
+@pytest.fixture(scope="module")
+def qdet(weights):
+    """The int8 yolov3 (noise calibration), built once for the
+    data-parallel and the export cases."""
+    return Detector("yolov3", weights_path=weights, quantized=True, **CONFIG)
+
+
 def two_cpus(monkeypatch):
     monkeypatch.setattr(mesh, "local_devices",
                         lambda: [torch.device("cpu"), torch.device("cpu")])
@@ -331,8 +338,8 @@ def test_data_parallel_equals_single_device(det, weights, monkeypatch):
         assert_same(w, g)
 
 
-def test_data_parallel_int8(weights, monkeypatch):
-    q = Detector("yolov3", weights_path=weights, quantized=True, **CONFIG)
+def test_data_parallel_int8(weights, qdet, monkeypatch):
+    q = qdet
     two_cpus(monkeypatch)
     dp = Detector("yolov3", weights_path=weights, quantized=True,
                   data_parallel=True, **CONFIG)
@@ -414,11 +421,10 @@ def test_demo_video_without_cv2(tmp_path, monkeypatch):
 # -- int8 export ---------------------------------------------------------
 
 
-def test_int8_export_roundtrip(weights, work):
+def test_int8_export_roundtrip(qdet, work):
     """An int8 yolov3 (noise calibration) exported and loaded: the
     quantized tree's leaves are program inputs (int8 among them), and
     the answers are the live Detector's, bit for bit."""
-    qdet = Detector("yolov3", weights_path=weights, quantized=True, **CONFIG)
     path = str(work / "int8.npz")
     export_detector(qdet, path, batch_size=1)
     served = load_exported(path)
