@@ -48,7 +48,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
               (32, 69354, 80) bf16 and f32 sources with K=1024 indices
               sorted with duplicates, in top-k order and all equal, and
               on C=7 rows that break 16-byte alignment;
- 10. parity   Detector("yolov3", 416), Detector("fcos", 320),
+ 10. parity   Detector("yolov3", 416), Detector("yolov3_608", 608) (the
+              golden image letterboxed), Detector("fcos", 320),
               Detector("rapid", 320), Detector("retinanet", 320) and
               Detector("retinanet_r101", 320), float32 with TF32 off, on
               the card against the same seeded weights on the CPU, on
@@ -56,7 +57,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
               noise);
  11. parity bf16  fcos, retinanet and retinanet_r101 at 320 in bf16 on
               the card against bf16 on the CPU, on the same canvases,
-              matched one to one and tie-aware (`match_bf16`);
+              matched one to one and tie-aware (`match_bf16`); then the
+              matched share with each kernel of the path (#3 GN, #6
+              chain, #7 bottleneck) routed to its plain version in turn
+              (`plain_kernel`) and with all of them, and each kernel's
+              bf16 output on its inputs from that run against a float32
+              computation beside its plain version's (a kernel further
+              from float32 than its plain version by more than the plain
+              version's own distance fails the phase);
  12. train parity  fcos, yolov3, rapid and retinanet at 64², batch 2,
               4 classes (rapid 1, with cxcywhθ GT), float32 with TF32
               off: `make_train_step` on the card against the CPU from
@@ -65,8 +73,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
               tests' gates, the launch counts: fcos's GN kernels 40
               each, no kernel on the others), and the loss falling over
               four steps;
- 13. main     each detect main path once — yolov3-416, fcos-608,
-              rapid-1024, retinanet-608, retinanet_r101-608 — bf16
+ 13. main     each detect main path once — yolov3-416, yolov3_608-608,
+              fcos-608, rapid-1024, retinanet-608, retinanet_r101-608 — bf16
               `detect_prepared` on 32 canvases, with every kernel launch
               count reset just before and read just after; then the
               batch's latency, img/s and device time; each kernel
@@ -1462,12 +1470,16 @@ def noise_canvas(size: int, seed: int = 5):
 
 def parity_cases() -> dict:
     """name → (canvas, info, conf) of the detect parity runs: yolov3 on
-    the letterboxed golden image at 416, fcos and rapid on its middle at
-    320, the RetinaNets on a 320² noise canvas (a uniform letterbox
-    border would give exactly tied candidates). At init FCOS scores sit
-    near 0.01 x 0.5: conf 0.005 keeps fcos from being vacuous."""
+    the golden image padded to 416, yolov3_608 on it letterboxed to 608
+    (as `detect_one` sends it), fcos and rapid on its middle at 320, the
+    RetinaNets on a 320² noise canvas (a uniform letterbox border would
+    give exactly tied candidates). At init FCOS scores sit near
+    0.01 x 0.5: conf 0.005 keeps fcos from being vacuous."""
+    from mydetection_tpu_torch.utils.image_ops import letterbox_np
+
     middle = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     return {"yolov3": (*padded_canvas(golden_image(), 416, 8, 58), 0.25),
+            "yolov3_608": (*letterbox_np(golden_image(), 608), 0.25),
             "fcos": (*middle, 0.005), "rapid": (*middle, 0.3),
             "retinanet": (*noise_canvas(320), 0.005),
             "retinanet_r101": (*noise_canvas(320), 0.005)}
@@ -1485,6 +1497,11 @@ def phase_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = parity_cases()
     check_parity("yolov3", *cases["yolov3"], {nms_keep: 1, fused_bottleneck: 0})
+    t0 = time.perf_counter()
+    check_parity("yolov3_608", *cases["yolov3_608"],
+                 {nms_keep: 1, fused_bottleneck: 0})
+    print(f"parity: yolov3_608-608 in {time.perf_counter() - t0:.1f} s "
+          f"(both runs, the cpu's included)", flush=True)
     check_parity("fcos", *cases["fcos"], {nms_keep: 1, bias_gn_relu: 40,
                                           gather_rows: 1, fused_bottleneck: 6})
     check_parity("rapid", *cases["rapid"], {nms_from_iou_keep: 1,
@@ -1524,6 +1541,112 @@ def match_bf16(gpu, cpu) -> dict:
             "max_d_box_px": db}
 
 
+# the kernels on each bf16 parity path, by wrapper name, with the
+# launches of one detect at 320 (besides the NMS's one and the gather's)
+BF16_KERNELS = {"fcos": {"bias_gn_relu": 40, "fused_bottleneck": 6},
+                "retinanet": {"conv3x3_chain": 10, "fused_bottleneck": 6},
+                "retinanet_r101": {"conv3x3_chain": 10,
+                                   "fused_bottleneck": 6}}
+
+
+def _kernel_sites() -> dict:
+    """wrapper name → (the module whose global the model's call site
+    reads for the kernel, the routing name that call site reads, what
+    that name becomes to route the site to the plain version)."""
+    from mydetection_tpu_torch.models import fcos as fcos_mod
+    from mydetection_tpu_torch.models import resnet as resnet_mod
+    from mydetection_tpu_torch.models import retinanet as retina_mod
+
+    return {"bias_gn_relu": (fcos_mod, "pick", lambda kernel, plain: plain),
+            "fused_bottleneck": (resnet_mod, "kernels_enabled", lambda: False),
+            "conv3x3_chain": (retina_mod, "kernels_enabled", lambda: False)}
+
+
+@contextlib.contextmanager
+def plain_kernel(name: str):
+    """Route one kernel's call site to its plain version for the
+    duration by rebinding the routing name it reads: fcos's towers'
+    `pick` (#3), the bottleneck's and the RetinaNet subnet's
+    `kernels_enabled` (#7, #6). A switch of this script only:
+    `kernels.route.plain_versions` routes every kernel at once."""
+    module, attr, plain = _kernel_sites()[name]
+    saved = getattr(module, attr)
+    setattr(module, attr, plain)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+@contextlib.contextmanager
+def kernel_calls(names):
+    """Record every call of the named kernels at their call sites:
+    yields name → [(args, kwargs, output)], filled as the model runs."""
+    sites = _kernel_sites()
+    calls = {name: [] for name in names}
+    saved = {name: getattr(sites[name][0], name) for name in names}
+    for name, fn in saved.items():
+        def record(*args, _fn=fn, _calls=calls[name], **kw):
+            out = _fn(*args, **kw)
+            _calls.append((args, kw, out))
+            return out
+        setattr(sites[name][0], name, record)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(sites[name][0], name, fn)
+
+
+def f32_distance(outs, refs) -> tuple[float, float]:
+    """(max-scaled, relative-L2) distance of outputs from their float32
+    references over all calls: the largest |out − ref| over the largest
+    |ref| of its call, and sqrt(Σ|out − ref|² / Σ|ref|²)."""
+    scaled, err2, ref2 = 0.0, 0.0, 0.0
+    for out, ref in zip(outs, refs):
+        d = out.float() - ref
+        scaled = max(scaled, float(d.abs().max() / ref.abs().max().clamp_min(
+            1e-30)))
+        err2 += float((d.double() ** 2).sum())
+        ref2 += float((ref.double() ** 2).sum())
+    return scaled, (err2 / max(ref2, 1e-300)) ** 0.5
+
+
+def kernel_f32_distances(name: str, calls, blocks) -> dict:
+    """For one kernel's calls captured in a bf16 run: how far its bf16
+    outputs, its plain version's bf16 outputs on the same inputs and,
+    for the bottleneck, the unfused block's (the route the call site
+    takes when the kernel is forced plain, the CPU's arithmetic) lie
+    from the plain version run in float32 on the inputs upcast (TF32
+    off). Each value is `f32_distance`'s pair."""
+    from mydetection_tpu_torch.kernels.bottleneck import fused_bottleneck_plain
+    from mydetection_tpu_torch.kernels.gn import bias_gn_relu_plain
+    from mydetection_tpu_torch.kernels.tower import conv3x3_chain_plain
+
+    plain = {"bias_gn_relu": bias_gn_relu_plain,
+             "fused_bottleneck": fused_bottleneck_plain,
+             "conv3x3_chain": conv3x3_chain_plain}[name]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = {"kernel": [], "plain": [], "unfused": []}
+    refs = []
+    try:
+        with torch.inference_mode():
+            for i, (args, kw, out) in enumerate(calls):
+                up = [a.float() if torch.is_tensor(a) else a for a in args]
+                refs.append(plain(*up, **kw).float())
+                outs["kernel"].append(out)
+                outs["plain"].append(plain(*args, **kw))
+                if name == "fused_bottleneck":
+                    outs["unfused"].append(blocks[i].unfused(args[0]))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    return {who: f32_distance(o, refs) for who, o in outs.items() if o}
+
+
 def phase_parity_bf16() -> None:
     """fcos, retinanet and retinanet_r101 at 320 in bf16 on the card
     against the same seeded weights in bf16 on the CPU, on the parity
@@ -1531,31 +1654,98 @@ def phase_parity_bf16() -> None:
     bias, one rounding per conv), the CPU the JAX bf16 graph's (the conv
     rounded first), so detections near a cut (the confidence gate, the
     top-k, NMS) may differ: `match_bf16` pairs them, and at least
-    BF16_MIN_MATCHED of the larger count must pair."""
-    from mydetection_tpu_torch import Detector
+    BF16_MIN_MATCHED of the larger count must pair.
+
+    Then the attribution of the unmatched share, kernel by kernel: the
+    card's matched share with each kernel of the path routed to its
+    plain version in turn (`plain_kernel`) and with all of them
+    (`plain_versions`), each run's launches checked; and, on each
+    kernel's inputs captured in the all-kernels run, its bf16 output's
+    distance from float32 beside its plain version's. A kernel further
+    from float32 than its plain version by more than the plain version's
+    own distance (by either measure) is at fault: the phase fails."""
+    from mydetection_tpu_torch import Detector, kernels
+    from mydetection_tpu_torch.kernels.route import plain_versions
+    from mydetection_tpu_torch.models import resnet as resnet_mod
 
     cases = parity_cases()
+    faults = []
     for name in ("fcos", "retinanet", "retinanet_r101"):
+        t0 = time.perf_counter()
         canvas, info, conf = cases[name]
-        runs = [Detector(name, device=device, input_size=canvas.shape[0],
-                         compute_dtype=torch.bfloat16, rng_seed=0)
-                .detect_prepared(canvas[None], [info], conf_thres=conf,
-                                 nms_iou=IOU_THRES)[0]
-                for device in ("cuda", "cpu")]
-        m = match_bf16(*runs)
-        frac = m["matched"] / max(len(runs[0]), len(runs[1]), 1)
-        print(f"parity bf16: {name}-{canvas.shape[0]} cuda vs cpu, "
-              f"{len(runs[0])} and {len(runs[1])} detections at conf {conf}: "
-              f"{m['matched']} matched ({frac:.3f} of the larger count; gate "
-              f">= {BF16_MIN_MATCHED[name]}) within {BF16_SCORE_TOL} score and "
-              f"{BF16_BOX_TOL} px, {m['unmatched_card']} card and "
-              f"{m['unmatched_cpu']} cpu unmatched; matched pairs max "
-              f"|d score| {m['max_d_score']:.3g}, max |d box| "
-              f"{m['max_d_box_px']:.3g} px", flush=True)
-        if frac < BF16_MIN_MATCHED[name]:
-            raise AssertionError(f"{name} bf16 cuda/cpu: {frac:.3f} of the "
-                                 f"detections matched, gate "
-                                 f"{BF16_MIN_MATCHED[name]}")
+        size = canvas.shape[0]
+        dets = {device: Detector(name, device=device, input_size=size,
+                                 compute_dtype=torch.bfloat16, rng_seed=0)
+                for device in ("cuda", "cpu")}
+
+        def detect(device):
+            return dets[device].detect_prepared(
+                canvas[None], [info], conf_thres=conf, nms_iou=IOU_THRES)[0]
+
+        cpu = detect("cpu")
+        base = {"nms_keep": 1, "gather_rows": 1, **BF16_KERNELS[name]}
+        # the all-kernels run records each kernel's calls
+        runs = [("all kernels", kernel_calls(BF16_KERNELS[name]), base)]
+        runs += [(f"{k} plain", plain_kernel(k), {**base, k: 0})
+                 for k in BF16_KERNELS[name]]
+        runs.append(("all plain", plain_versions(), {}))
+        shares = []
+        for label, ctx, want in runs:
+            with ctx as recorded:
+                kernels.reset_launches()
+                gpu = detect("cuda")
+                check_launches(f"{name} bf16 detect, {label},",
+                               read_launches(), want)
+            if recorded is not None:
+                calls = recorded
+            m = match_bf16(gpu, cpu)
+            frac = m["matched"] / max(len(gpu), len(cpu), 1)
+            shares.append(f"{label} {frac:.3f} ({m['matched']} of {len(gpu)} "
+                          f"and {len(cpu)})")
+            if label != "all kernels":
+                continue
+            print(f"parity bf16: {name}-{size} cuda vs cpu, {len(gpu)} and "
+                  f"{len(cpu)} detections at conf {conf}: {m['matched']} "
+                  f"matched ({frac:.3f} of the larger count; gate >= "
+                  f"{BF16_MIN_MATCHED[name]}) within {BF16_SCORE_TOL} score "
+                  f"and {BF16_BOX_TOL} px, {m['unmatched_card']} card and "
+                  f"{m['unmatched_cpu']} cpu unmatched; matched pairs max "
+                  f"|d score| {m['max_d_score']:.3g}, max |d box| "
+                  f"{m['max_d_box_px']:.3g} px", flush=True)
+            if frac < BF16_MIN_MATCHED[name]:
+                raise AssertionError(f"{name} bf16 cuda/cpu: {frac:.3f} of "
+                                     f"the detections matched, gate "
+                                     f"{BF16_MIN_MATCHED[name]}")
+        print(f"parity bf16 attribution: {name}-{size} matched share of the "
+              f"card's detect against the cpu's bf16: {'; '.join(shares)}",
+              flush=True)
+        blocks = [m for m in dets["cuda"].model.modules()
+                  if isinstance(m, resnet_mod.Bottleneck) and m.fused]
+        for k, n in BF16_KERNELS[name].items():
+            if len(calls[k]) != n:
+                raise AssertionError(f"{name} bf16 detect: {len(calls[k])} "
+                                     f"calls of {k} captured, expected {n}")
+            dist = kernel_f32_distances(k, calls[k], blocks)
+            (ks, kl), (ps, pl) = dist["kernel"], dist["plain"]
+            fault = ks - ps > ps or kl - pl > pl
+            if fault:
+                faults.append(f"{name} {k}")
+            unfused = (f"; the unfused block (the route forced plain) "
+                       f"{dist['unfused'][0]:.3g}, {dist['unfused'][1]:.3g}"
+                       if "unfused" in dist else "")
+            print(f"parity bf16 attribution: {name}-{size} {k}, "
+                  f"{len(calls[k])} calls of the all-kernels run, distance "
+                  f"from float32 "
+                  f"(max-scaled, relative L2): kernel {ks:.3g}, {kl:.3g}; "
+                  f"plain {ps:.3g}, {pl:.3g}{unfused}: "
+                  f"{'AT FAULT' if fault else 'no further than plain allows'}",
+                  flush=True)
+        del dets, calls
+        print(f"parity bf16: {name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    if faults:
+        raise AssertionError(f"bf16 kernels further from float32 than their "
+                             f"plain versions allow: {faults}")
 
 
 def main_canvases(size: int):
@@ -3682,6 +3872,11 @@ def main() -> int:
     phase_train_parity()
     yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
     rows = [nms_row(yolo, "yolov3")]
+    t0 = time.perf_counter()
+    yolo = drive_main("yolov3_608", 608, 0.25, smi, {"nms_keep": 1})
+    nms_row(yolo, "yolov3_608")
+    print(f"main: yolov3_608-608 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del yolo
     fcos = drive_main("fcos", 608, 0.005, smi,
                       {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,

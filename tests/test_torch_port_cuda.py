@@ -2,7 +2,8 @@
 size), bias+GroupNorm+ReLU (forward, forward with statistics, fused
 backward), rotated-NMS suppress, conv chain, row gather and fused
 bottleneck kernels against their plain versions, the CUDA Detectors
-(yolov3, fcos, rapid, retinanet, retinanet_r101) against the CPU ones,
+(yolov3 at 416 and yolov3_608 at 608, fcos, rapid, retinanet,
+retinanet_r101) against the CPU ones,
 the CUDA train steps of fcos, yolov3, rapid and retinanet against the
 CPU ones, the data-parallel fcos step on two replicas of one card
 against the one-device step, and a RetinaNet subnet's towers under
@@ -50,6 +51,7 @@ from chip_smoke import (  # noqa: E402
     nms_cases,
     noise_canvas,
     padded_canvas,
+    parity_cases,
     parity_train_run,
     rotated_cases,
     tower_case,
@@ -414,6 +416,16 @@ def _cuda_vs_cpu(name, size, conf, canvas, info, kernel_launches):
 def test_cuda_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image(), 416, 8, 58)
     _cuda_vs_cpu("yolov3", 416, 0.25, canvas, info,
+                 {nms_keep: 1, fused_bottleneck: 0})
+
+
+def test_cuda_yolov3_608_detector_matches_cpu(cuda, no_tf32):
+    """yolov3_608 at its registered size on the golden image letterboxed
+    to 608: chip_smoke's parity (float32, TF32 off, the same seeded
+    weights; counts and classes equal, scores within 1e-4, boxes within
+    1e-2 px, row by row or by a one-to-one match), one NMS launch and no
+    other kernel."""
+    check_parity("yolov3_608", *parity_cases()["yolov3_608"],
                  {nms_keep: 1, fused_bottleneck: 0})
 
 
