@@ -1,0 +1,12 @@
+"""Device time of `TrainStep.backward` (autograd through the model and the
+loss), by CUDA events, mean over the traced window's steps before its
+profiled stretch."""
+import statistics
+
+NAME, UNIT, KIND, SOURCE = "train_bwd_ms", "ms", "train", "program_span"
+LAYER, MOVES = "train step (training.py)", "train_img_s"
+
+
+def read(ctx):
+    values = ctx.get("bwd_ms")
+    return statistics.fmean(values) if values else None
