@@ -34,6 +34,11 @@ the detections (`utils.visualization`).
 
 The device is explicit: `Detector(..., device=None)` means "cuda" and
 raises when no GPU is present; pass `device="cpu"` to run on the CPU.
+
+Under `utils.profiling.recording()` each `detect_prepared` /
+`detect_batch` call records a `detect.batch` span holding
+`detect.letterbox` (`detect_batch` only), `detect.inputs`,
+`detect.forward`, `detect.post`, `detect.copy_back` and `detect.strip`.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from mydetection_tpu_torch.utils.image_ops import (
     detections_to_original,
     letterbox_pil,
 )
+from mydetection_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -422,31 +428,47 @@ class Detector:
                    n_real: int) -> dict:
         """uint8 (B, S, S, 3) canvases (numpy, or a tensor on any
         device) → padded detections as host numpy arrays."""
-        images = torch.as_tensor(canvases).to(self.device)
-        if images.dtype != torch.uint8 or images.dim() != 4 \
-                or images.shape[-1] != 3:
-            raise ValueError(f"expected uint8 (B, S, S, 3) canvases, got "
-                             f"{tuple(images.shape)} {images.dtype}")
-        check_input_size(int(images.shape[1]))
-        conf = torch.from_numpy(
-            _conf_vector(conf_thres, n_real, images.shape[0]))
+        with span("detect.inputs"):
+            images = torch.as_tensor(canvases).to(self.device)
+            if images.dtype != torch.uint8 or images.dim() != 4 \
+                    or images.shape[-1] != 3:
+                raise ValueError(f"expected uint8 (B, S, S, 3) canvases, "
+                                 f"got {tuple(images.shape)} {images.dtype}")
+            check_input_size(int(images.shape[1]))
+            conf = torch.from_numpy(
+                _conf_vector(conf_thres, n_real, images.shape[0]))
+            if self._replicas is None:
+                conf = conf.to(self.device)
+            else:
+                mesh = [dev for dev, _ in self._replicas]
+                # shard_batch leaves out only trailing empty chunks, so
+                # the chunks line up with the first replicas
+                chunks = zip(self._replicas, shard_batch(images, mesh),
+                             shard_batch(conf, mesh))
         with torch.inference_mode(), plain_versions(not self.use_pallas):
             if self._replicas is None:
-                out = self._post(self._forward_dense(images),
-                                 conf.to(self.device), float(nms_iou))
-                return {k: v.cpu().numpy() for k, v in out.items()}
-            mesh = [dev for dev, _ in self._replicas]
-            # shard_batch leaves out only trailing empty chunks, so the
-            # chunks line up with the first replicas
-            outs = [self._post(forward(chunk), c, float(nms_iou))
-                    for (_, forward), (_, chunk), (_, c) in zip(
-                        self._replicas, shard_batch(images, mesh),
-                        shard_batch(conf, mesh))]
-        return {k: torch.cat([o[k].cpu() for o in outs]).numpy()
-                for k in outs[0]}
+                with span("detect.forward"):
+                    dense = self._forward_dense(images)
+                with span("detect.post"):
+                    out = self._post(dense, conf, float(nms_iou))
+                with span("detect.copy_back"):
+                    return {k: v.cpu().numpy() for k, v in out.items()}
+            outs = []
+            for i, ((_, forward), (_, chunk), (_, c)) in enumerate(chunks):
+                with span("detect.forward", replica=i):
+                    dense = forward(chunk)
+                with span("detect.post", replica=i):
+                    outs.append(self._post(dense, c, float(nms_iou)))
+            host = []
+            for i, o in enumerate(outs):
+                with span("detect.copy_back", replica=i):
+                    host.append({k: v.cpu() for k, v in o.items()})
+        return {k: torch.cat([h[k] for h in host]).numpy() for k in host[0]}
 
-    def _strip(self, out: dict, i: int, info: LetterboxInfo) -> Detections:
-        return strip_detections(out, i, info, rotated=self.cfg.rotated)
+    def _strip(self, out: dict, infos) -> list[Detections]:
+        with span("detect.strip"):
+            return [strip_detections(out, i, info, rotated=self.cfg.rotated)
+                    for i, info in enumerate(infos)]
 
     # -- public surface ----------------------------------------------------
 
@@ -483,15 +505,18 @@ class Detector:
         check_input_size(size)
         conf = conf_thres if conf_thres is not None else self.cfg.conf_thres
         iou = nms_iou if nms_iou is not None else self.cfg.nms_iou
-        canvases, infos = [], []
-        for im in images:
-            canvas, info = letterbox_pil(load_image_any(im), size)
-            canvases.append(canvas)
-            infos.append(info)
-        if not canvases:
+        images = list(images)
+        if not images:
             return []
-        out = self._run_batch(np.stack(canvases), conf, iou, len(infos))
-        return [self._strip(out, i, info) for i, info in enumerate(infos)]
+        with span("detect.batch", new_step=True, size=len(images)):
+            canvases, infos = [], []
+            with span("detect.letterbox"):
+                for im in images:
+                    canvas, info = letterbox_pil(load_image_any(im), size)
+                    canvases.append(canvas)
+                    infos.append(info)
+            out = self._run_batch(np.stack(canvases), conf, iou, len(infos))
+            return self._strip(out, infos)
 
     # reference-name alias (detect_imgSeq in myDetection's api.py)
     def detect_imgSeq(self, img_paths: Sequence[str], **kw) -> list[Detections]:
@@ -506,5 +531,6 @@ class Detector:
         image (len == len(infos))."""
         conf = conf_thres if conf_thres is not None else self.cfg.conf_thres
         iou = nms_iou if nms_iou is not None else self.cfg.nms_iou
-        out = self._run_batch(canvases, conf, iou, len(infos))
-        return [self._strip(out, i, info) for i, info in enumerate(infos)]
+        with span("detect.batch", new_step=True, size=len(infos)):
+            out = self._run_batch(canvases, conf, iou, len(infos))
+            return self._strip(out, infos)

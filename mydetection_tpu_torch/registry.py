@@ -21,6 +21,7 @@ from torch import nn
 
 from mydetection_tpu_torch.models import fcos, rapid, retinanet, yolov3
 from mydetection_tpu_torch.ops.boxes import cxcywh_to_xyxy
+from mydetection_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,28 +211,34 @@ def loss_sums(model: nn.Module, images: torch.Tensor, gt_boxes: torch.Tensor,
     batch."""
     cfg = model.config
     size = input_size or cfg.input_size
-    if cfg.family == "yolov3":
-        anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
-        return yolov3.loss_sums(model(images), gt_boxes, gt_classes, gt_valid,
-                                input_size=size, num_classes=cfg.num_classes,
-                                anchors=anchors)
-    if cfg.family == "rapid":
-        anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
-        return rapid.loss_sums(model(images), gt_boxes, gt_valid,
-                               input_size=size, anchors=anchors)
-    if cfg.family == "retinanet":
-        cls_logits, deltas = model(images, with_gate=False)
-        anchors = retinanet.generate_anchors(int(images.shape[1]),
-                                             images.device)
-        return retinanet.loss_sums(cls_logits.float(), deltas, anchors,
-                                   gt_boxes, gt_classes, gt_valid,
-                                   num_classes=cfg.num_classes)
-    cls_logits, ltrb, ctr = model(images, with_gate=False)
-    locations, strides = fcos.generate_locations(int(images.shape[1]),
+    family = cfg.family
+    with span("train.model"):
+        out = (model(images) if family in ("yolov3", "rapid")
+               else model(images, with_gate=False))
+    with span("train.loss"):
+        if family == "yolov3":
+            anchors = cfg.anchors if cfg.anchors is not None else yolov3.ANCHORS
+            return yolov3.loss_sums(out, gt_boxes, gt_classes, gt_valid,
+                                    input_size=size,
+                                    num_classes=cfg.num_classes,
+                                    anchors=anchors)
+        if family == "rapid":
+            anchors = cfg.anchors if cfg.anchors is not None else rapid.ANCHORS
+            return rapid.loss_sums(out, gt_boxes, gt_valid, input_size=size,
+                                   anchors=anchors)
+        if family == "retinanet":
+            cls_logits, deltas = out
+            anchors = retinanet.generate_anchors(int(images.shape[1]),
                                                  images.device)
-    return fcos.loss_sums(cls_logits.float(), ltrb, ctr, locations, strides,
-                          gt_boxes, gt_classes, gt_valid,
-                          num_classes=cfg.num_classes)
+            return retinanet.loss_sums(cls_logits.float(), deltas, anchors,
+                                       gt_boxes, gt_classes, gt_valid,
+                                       num_classes=cfg.num_classes)
+        cls_logits, ltrb, ctr = out
+        locations, strides = fcos.generate_locations(int(images.shape[1]),
+                                                     images.device)
+        return fcos.loss_sums(cls_logits.float(), ltrb, ctr, locations,
+                              strides, gt_boxes, gt_classes, gt_valid,
+                              num_classes=cfg.num_classes)
 
 
 def loss_from_sums(cfg: ModelConfig, sums: dict) -> dict:

@@ -23,8 +23,9 @@ Design:
     after warmup every request runs a shape cuDNN and the kernels have
     already seen.
   - **Observability.** `/stats` reports request and batch counters,
-    mean bucket occupancy, queue depth, batches by input size and
-    latency percentiles from a bounded reservoir.
+    mean bucket occupancy, queue depth, batches by input size, and
+    percentiles of the latency and of the queue wait (enqueue to the
+    batch's dispatch) from bounded reservoirs.
 
 Endpoints:
   POST /detect?conf_thres=&input_size=   body: image bytes (JPEG/PNG/
@@ -85,15 +86,16 @@ class _Stats:
         self.padded_rows = 0
         self.batches_by_size: dict[int, int] = collections.Counter()
         self.latencies = collections.deque(maxlen=_LATENCY_WINDOW)
+        self.queue_waits = collections.deque(maxlen=_LATENCY_WINDOW)
 
-    def record_batch(self, n_real: int, bucket: int,
-                     input_size: int | None = None) -> None:
+    def record_batch(self, n_real: int, bucket: int, input_size: int,
+                     queue_waits_s: list[float]) -> None:
         with self.lock:
+            self.queue_waits.extend(queue_waits_s)
             self.batches += 1
             self.images += n_real
             self.padded_rows += bucket - n_real
-            if input_size is not None:
-                self.batches_by_size[input_size] += 1
+            self.batches_by_size[input_size] += 1
 
     def record_request(self, latency_s: float, ok: bool) -> None:
         with self.lock:
@@ -105,7 +107,6 @@ class _Stats:
 
     def snapshot(self, queue_depth: int) -> dict:
         with self.lock:
-            lats = sorted(self.latencies)
             total_rows = self.images + self.padded_rows
             return {
                 "requests": self.requests,
@@ -121,13 +122,20 @@ class _Stats:
                 # coalesce_sizes collapses to one size's batches
                 "batches_by_size": dict(self.batches_by_size),
                 "queue_depth": queue_depth,
-                "latency_ms": None if not lats else {
-                    "p50": round(1e3 * lats[len(lats) // 2], 2),
-                    "p99": round(1e3 * lats[min(len(lats) - 1,
-                                                int(len(lats) * 0.99))], 2),
-                    "max": round(1e3 * lats[-1], 2),
-                },
+                "latency_ms": _percentiles_ms(self.latencies),
+                # enqueue to the batch's dispatch: the linger plus the
+                # wait behind earlier batches on the one dispatcher
+                "queue_wait_ms": _percentiles_ms(self.queue_waits),
             }
+
+
+def _percentiles_ms(seconds) -> dict | None:
+    s = sorted(seconds)
+    if not s:
+        return None
+    return {"p50": round(1e3 * s[len(s) // 2], 2),
+            "p99": round(1e3 * s[min(len(s) - 1, int(len(s) * 0.99))], 2),
+            "max": round(1e3 * s[-1], 2)}
 
 
 class _Batcher(threading.Thread):
@@ -216,6 +224,7 @@ class _Batcher(threading.Thread):
                 self._dispatch(group)
 
     def _dispatch(self, group: list[_Pending]) -> None:
+        t_dispatch = time.monotonic()
         n = len(group)
         bucket = self._covering_bucket(n)
         try:
@@ -230,8 +239,9 @@ class _Batcher(threading.Thread):
             conf = confs[0] if len(set(confs)) == 1 else confs
             dets = self.backend.detect_prepared(
                 canvases, [p.info for p in group], conf_thres=conf)
-            self.stats.record_batch(n, bucket,
-                                    input_size=group[0].canvas.shape[0])
+            self.stats.record_batch(
+                n, bucket, input_size=group[0].canvas.shape[0],
+                queue_waits_s=[t_dispatch - p.t_enqueue for p in group])
             for p, d in zip(group, dets):
                 p.result = d
                 p.done.set()

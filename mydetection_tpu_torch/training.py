@@ -19,6 +19,11 @@ JAX step under a mesh (`DataParallelTrainStep`): the parameters on
 every device, the batch split along dim 0, and one global step, whose
 BatchNorm statistics, loss normalisers and gradients span every
 replica (`parallel/mesh.py`).
+
+Under `utils.profiling.recording()` the phases record the spans
+`train.batch` (which opens the step's id), `train.forward` (holding
+`registry.loss_sums`' `train.model` and `train.loss`),
+`train.backward` and `train.update`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from mydetection_tpu_torch.convert import (
 )
 from mydetection_tpu_torch.kernels.route import kernels_enabled, plain_versions
 from mydetection_tpu_torch.parallel import mesh as mesh_lib
+from mydetection_tpu_torch.utils.profiling import span
 
 
 def sgd_init(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -104,7 +110,12 @@ class TrainStep:
               ) -> tuple[torch.Tensor, ...]:
         """uint8 (B, S, S, 3) images with S = input_size and GT padded to
         M boxes (numpy or tensors): boxes (B, M, 4) cxcywh, or (B, M, 5)
-        cxcywhθ for a rotated model → tensors on the step's device."""
+        cxcywhθ for a rotated model → tensors on the step's device.
+        Opens the step's id (`span`)."""
+        with span("train.batch", new_step=True):
+            return self._batch(images_u8, gt_boxes, gt_classes, gt_valid)
+
+    def _batch(self, images_u8, gt_boxes, gt_classes, gt_valid):
         images = torch.as_tensor(images_u8).to(self.device)
         s = self.input_size
         if images.dtype != torch.uint8 or tuple(images.shape[1:]) != (s, s, 3):
@@ -123,18 +134,25 @@ class TrainStep:
     def forward(self, images, gt_boxes, gt_classes, gt_valid) -> dict:
         """The loss terms, with the darknet box weight at the step's
         input size."""
-        return registry.loss(self.model, images, gt_boxes, gt_classes,
-                             gt_valid, input_size=self.input_size)
+        with span("train.forward"):
+            return registry.loss(self.model, images, gt_boxes, gt_classes,
+                                 gt_valid, input_size=self.input_size)
 
     def backward(self, terms: dict) -> dict[str, torch.Tensor]:
         """d total / d parameter for every parameter (zero where one
         takes no part, as `jax.grad` gives)."""
-        grads = torch.autograd.grad(terms["total"], list(self.params.values()),
-                                    allow_unused=True)
-        return {k: torch.zeros_like(p) if g is None else g
-                for (k, p), g in zip(self.params.items(), grads)}
+        with span("train.backward"):
+            grads = torch.autograd.grad(terms["total"],
+                                        list(self.params.values()),
+                                        allow_unused=True)
+            return {k: torch.zeros_like(p) if g is None else g
+                    for (k, p), g in zip(self.params.items(), grads)}
 
     def update(self, grads: dict[str, torch.Tensor], lr: float) -> None:
+        with span("train.update"):
+            self._update(grads, lr)
+
+    def _update(self, grads: dict[str, torch.Tensor], lr: float) -> None:
         sgd_update(self.params, grads, self.velocity, lr=lr,
                    momentum=self.momentum, weight_decay=self.weight_decay)
 
@@ -230,9 +248,12 @@ class DataParallelTrainStep:
         one chunk a replica, each on its device (the first chunks one
         image larger where the batch does not divide; replicas whose
         chunk would be empty sit the step out)."""
-        whole = self.primary.batch(images_u8, gt_boxes, gt_classes, gt_valid)
-        cols = [mesh_lib.shard_batch(t, self.devices) for t in whole]
-        return [tuple(col[r][1] for col in cols) for r in range(len(cols[0]))]
+        with span("train.batch", new_step=True):
+            whole = self.primary._batch(images_u8, gt_boxes, gt_classes,
+                                        gt_valid)
+            cols = [mesh_lib.shard_batch(t, self.devices) for t in whole]
+            return [tuple(col[r][1] for col in cols)
+                    for r in range(len(cols[0]))]
 
     def forward(self, *shards: tuple[torch.Tensor, ...]) -> dict:
         """The loss terms of the whole batch, on the first device, from
@@ -241,39 +262,45 @@ class DataParallelTrainStep:
         plain, grad = not kernels_enabled(), torch.is_grad_enabled()
         size = self.primary.input_size
 
-        def replica(model, shard):
+        def replica(r, model, shard):
             def run():
-                with plain_versions(plain), torch.set_grad_enabled(grad):
+                with plain_versions(plain), torch.set_grad_enabled(grad), \
+                        span("train.forward", replica=r):
                     return registry.loss_sums(model, *shard, input_size=size)
             return run
 
         k = len(shards)
-        sums = mesh_lib.lockstep(self.devices[:k], [
-            replica(m, s) for m, s in zip(self.replicas, shards)])
-        total = {key: (mesh_lib.replica_sum([s[key] for s in sums],
-                                            self.devices[0])
-                       if torch.is_tensor(first) else
-                       sum(s[key] for s in sums))
-                 for key, first in sums[0].items()}
-        return registry.loss_from_sums(self.model.config, total)
+        with span("train.forward"):
+            sums = mesh_lib.lockstep(self.devices[:k], [
+                replica(r, m, s) for r, (m, s) in
+                enumerate(zip(self.replicas, shards))])
+            total = {key: (mesh_lib.replica_sum([s[key] for s in sums],
+                                                self.devices[0])
+                           if torch.is_tensor(first) else
+                           sum(s[key] for s in sums))
+                     for key, first in sums[0].items()}
+            return registry.loss_from_sums(self.model.config, total)
 
     def backward(self, terms: dict) -> dict[str, torch.Tensor]:
         """d total / d parameter, summed over the replicas on the first
         device (zero where a parameter takes no part)."""
-        flat = [p for ps in self._params for p in ps]
-        grads = torch.autograd.grad(terms["total"], flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
-        n, d0 = len(self._params[0]), self.devices[0]
-        total = [g.to(d0) for g in grads[:n]]
-        for r in range(1, len(self.replicas)):
-            total = torch._foreach_add(
-                total, [g.to(d0) for g in grads[r * n:(r + 1) * n]])
-        return dict(zip(self.primary.params, total))
+        with span("train.backward"):
+            flat = [p for ps in self._params for p in ps]
+            grads = torch.autograd.grad(terms["total"], flat,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, grads)]
+            n, d0 = len(self._params[0]), self.devices[0]
+            total = [g.to(d0) for g in grads[:n]]
+            for r in range(1, len(self.replicas)):
+                total = torch._foreach_add(
+                    total, [g.to(d0) for g in grads[r * n:(r + 1) * n]])
+            return dict(zip(self.primary.params, total))
 
     def update(self, grads: dict[str, torch.Tensor], lr: float) -> None:
-        self.primary.update(grads, lr)
-        self.sync()
+        with span("train.update"):
+            self.primary._update(grads, lr)
+            self.sync()
 
     def sync(self) -> None:
         """Copy replica 0's parameters and buffers to the others."""

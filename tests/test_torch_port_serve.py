@@ -3,7 +3,7 @@
 `tests/test_serve.py`'s cases with the port's own objects: the
 `_Batcher` units against a fake backend (coalescing, padding, key
 splits, mixed-conf vectors, the queue cap, cancellation, a failing
-group); a live yolov3 Detector at 64² (float32, buckets 1 and 2) behind
+group, each request's queue wait); a live yolov3 Detector at 64² (float32, buckets 1 and 2) behind
 the server: `/healthz`, `/detect` equal to `detect_one` (a coalesced
 batch may sum its convs in another order than a batch of 1: 1e-4
 relative, 1e-3 px), the `conf_thres` query, concurrent requests
@@ -191,6 +191,7 @@ def test_concurrent_requests_coalesced(base, det):
     assert requests == 8 and batches < requests
     assert stats["batches_by_size"] == {str(SIZE): stats["batches"]}
     assert stats["latency_ms"]["p50"] > 0
+    assert 0 <= stats["queue_wait_ms"]["p50"] <= stats["latency_ms"]["max"]
 
 
 def test_bad_requests_are_4xx(base):
@@ -351,6 +352,23 @@ def test_batcher_coalesces_same_key():
     snap = stats.snapshot(0)
     assert snap["batches"] == 1 and snap["images"] == 4
     assert snap["bucket_occupancy"] == 1.0
+
+
+def test_batcher_records_each_requests_queue_wait():
+    """Four requests enqueued 0.2 s and 0 s before a batcher that
+    lingers up to 0.05 s: /stats' queue_wait_ms holds each request's
+    enqueue-to-dispatch time, beside latency_ms."""
+    assert _Stats().snapshot(0)["queue_wait_ms"] is None
+    backend = FakeBackend()
+    pend = [pending((128, 0.3)) for _ in range(4)]
+    pend[0].t_enqueue -= 0.2
+    stats = run_batcher(backend, [1, 4], 0.05, pend)
+    assert backend.calls == [(4, 4, 0.3)]
+    waits = stats.snapshot(0)["queue_wait_ms"]
+    assert set(waits) == {"p50", "p99", "max"}
+    assert 200 <= waits["max"] < 10_000
+    assert 0 <= waits["p50"] <= waits["p99"] <= waits["max"]
+    assert len(stats.queue_waits) == 4
 
 
 def test_batcher_pads_to_covering_bucket():

@@ -292,6 +292,9 @@ NOT_PORTED = {
                                      "(replicate)",
     ("utils/image_ops", "pack_s2d2"): "the darknet stem's space-to-depth "
                                       "layout (TPU only)",
+    **{("utils/profiling", f): "wall timers read by nothing; the port's "
+                               "spans (span, recording) time its layers"
+       for f in ("timer", "Timer")},
 }
 
 

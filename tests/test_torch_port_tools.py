@@ -5,8 +5,8 @@ trip.
 
   * `utils.visualization.draw_detections` pixel-equal to the JAX
     module's on the same detections (both draw with cv2 here);
-  * `trace` writes a Chrome trace holding an `annotate` range; `timer`
-    and `Timer` record;
+  * `trace` writes a Chrome trace holding an `annotate` range (its
+    spans: `test_torch_port_spans.py`);
   * `compiled_flops` of one 3x3 conv is 2·Cin·Cout·k²·H·W exactly, and
     the FLOP formulas of the fused conv kernels (`mydet::conv3x3_chain`,
     `mydet::fused_bottleneck`) equal the count of the convolutions
@@ -189,25 +189,6 @@ def test_trace_writes_chrome_trace(tmp_path):
     events = json.load(open(path))["traceEvents"]
     assert any(e.get("name") == "port_stage" for e in events)
     assert any(e.key == "port_stage" for e in prof.key_averages())
-
-
-def test_timer_and_stage_timer(capsys):
-    results = {}
-    with profiling.timer("mm", results, sync=lambda: torch.ones(3)):
-        torch.ones(8) * 2
-    with profiling.timer("printed"):
-        pass
-    assert len(results["mm"]) == 1 and results["mm"][0] >= 0
-    assert "[timer] printed" in capsys.readouterr().out
-    t = profiling.Timer()
-    for _ in range(3):
-        with t.stage("a", sync={"x": torch.zeros(2)}):
-            pass
-    with t.stage("b"):
-        pass
-    s = t.summary()
-    assert s["a"]["calls"] == 3 and s["b"]["calls"] == 1
-    assert set(s["a"]) == {"calls", "total_s", "mean_ms", "max_ms"}
 
 
 # -- FLOPs -----------------------------------------------------------------
