@@ -78,7 +78,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               `detect_prepared` on 32 canvases, with every kernel launch
               count reset just before and read just after; then the
               batch's latency, img/s and device time; each kernel
-              replayed on the path's own inputs for its row;
+              replayed on the path's own inputs for its row (the conv
+              epilogue's on yolov3 and fcos, every call bit-equal to
+              its plain version);
  13b. quant main  each int8 main path — yolov3-416, rapid-1024,
               fcos-608, retinanet-608, retinanet_r101-608 —
               `Detector(quantized=True)` calibrated on 8 of the canvases,
@@ -305,23 +307,28 @@ NATIVE_MAX_LSB, NATIVE_MEAN_LSB = 2, 0.5
 # the evaluate CLI's paths, bf16 at its default batch (rapid at 16):
 # (name, input size, batch, rotated, kernel launches per batch)
 EVAL_MAINS = (
-    ("yolov3", 416, 32, False, {"nms_keep": 1}),
+    ("yolov3", 416, 32, False, {"nms_keep": 1, "conv_epilogue": 75}),
     ("fcos", 608, 32, False, {"bias_gn_relu": 40, "fused_bottleneck": 6,
-                              "gather_rows": 1, "nms_keep": 1}),
+                              "gather_rows": 1, "nms_keep": 1,
+                              "conv_epilogue": 34}),
     ("retinanet", 608, 32, False, {"conv3x3_chain": 10, "fused_bottleneck": 6,
-                                   "gather_rows": 1, "nms_keep": 1}),
-    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1}),
+                                   "gather_rows": 1, "nms_keep": 1,
+                                   "conv_epilogue": 34}),
+    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1, "conv_epilogue": 75}),
 )
 # the evaluate CLI's int8 runs (`--quantized --calib-images
 # EVAL_CALIB_IMAGES`, one calibration batch, whose walk launches the GN
-# kernel 40 times on fcos): (name, input size, batch, rotated, kernel
-# launches per batch)
+# kernel 40 times on fcos and runs the float prologue once): (name,
+# input size, batch, rotated, kernel launches per batch; the float
+# prologue's conv epilogues: Darknet's stem to stage 1's downsample, 5,
+# ResNet's stem, 1)
 EVAL_QUANT_MAINS = (
-    ("yolov3", 416, 32, False, {"nms_keep": 1}),
+    ("yolov3", 416, 32, False, {"nms_keep": 1, "conv_epilogue": 5}),
     ("fcos", 608, 32, False, {"bias_gn_relu": 40, "gather_rows": 1,
-                              "nms_keep": 1}),
-    ("retinanet", 608, 32, False, {"gather_rows": 1, "nms_keep": 1}),
-    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1}),
+                              "nms_keep": 1, "conv_epilogue": 1}),
+    ("retinanet", 608, 32, False, {"gather_rows": 1, "nms_keep": 1,
+                                   "conv_epilogue": 1}),
+    ("rapid", 1024, 16, True, {"nms_from_iou_keep": 1, "conv_epilogue": 5}),
 )
 EVAL_CALIB_IMAGES = 8
 EVAL_F32_IMAGES = 16        # the float32 card-vs-CPU evaluate check
@@ -340,14 +347,17 @@ EVAL_F32_CONF = 0.55
 TRAIN_CLI_LR, TRAIN_CLI_BURN_IN = 1e-5, 10
 # the int8 serving path's main runs (Detector(quantized=True)), bf16 at
 # BATCH: (name, input size, conf, kernel launches of one detect); no
-# int8 path launches the conv chain or the fused bottleneck
+# int8 path launches the conv chain or the fused bottleneck; the float
+# prologue launches the conv epilogue (Darknet 5, ResNet's stem 1)
 QUANT_MAINS = (
-    ("yolov3", 416, 0.25, {"nms_keep": 1}),
-    ("rapid", 1024, 0.3, {"nms_from_iou_keep": 1}),
+    ("yolov3", 416, 0.25, {"nms_keep": 1, "conv_epilogue": 5}),
+    ("rapid", 1024, 0.3, {"nms_from_iou_keep": 1, "conv_epilogue": 5}),
     ("fcos", 608, 0.005, {"nms_keep": 1, "bias_gn_relu": 40,
-                          "gather_rows": 1}),
-    ("retinanet", 608, 0.005, {"nms_keep": 1, "gather_rows": 1}),
-    ("retinanet_r101", 608, 0.005, {"nms_keep": 1, "gather_rows": 1}),
+                          "gather_rows": 1, "conv_epilogue": 1}),
+    ("retinanet", 608, 0.005, {"nms_keep": 1, "gather_rows": 1,
+                               "conv_epilogue": 1}),
+    ("retinanet_r101", 608, 0.005, {"nms_keep": 1, "gather_rows": 1,
+                                    "conv_epilogue": 1}),
 )
 QUANT_CALIB_IMAGES = 8      # main_canvases' first, letterboxed: one batch
 TRAIN_CLI_ITERS, TRAIN_CLI_RESUMED, TRAIN_CLI_FCOS_ITERS = 40, 50, 6
@@ -361,15 +371,18 @@ TRAIN_DP_CLI_ITERS, TRAIN_DP_CLI_RESUMED = 3, 5
 # buckets, conf, int8, kernel launches of one batch-32 detect: the live
 # path's, as phases 13 and 13b count them)
 EXPORT_MAINS = (
-    ("yolov3", "yolov3", 416, (1, BATCH), 0.25, False, {"nms_keep": 1}),
+    ("yolov3", "yolov3", 416, (1, BATCH), 0.25, False,
+     {"nms_keep": 1, "conv_epilogue": 75}),
     ("fcos", "fcos", 608, (BATCH,), 0.005, False,
      {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
-      "fused_bottleneck": 6}),
-    ("rapid", "rapid", 1024, (BATCH,), 0.3, False, {"nms_from_iou_keep": 1}),
+      "fused_bottleneck": 6, "conv_epilogue": 34}),
+    ("rapid", "rapid", 1024, (BATCH,), 0.3, False,
+     {"nms_from_iou_keep": 1, "conv_epilogue": 75}),
     ("retinanet", "retinanet", 608, (BATCH,), 0.005, False,
      {"nms_keep": 1, "conv3x3_chain": 10, "gather_rows": 1,
-      "fused_bottleneck": 6}),
-    ("yolov3_int8", "yolov3", 416, (BATCH,), 0.25, True, {"nms_keep": 1}),
+      "fused_bottleneck": 6, "conv_epilogue": 34}),
+    ("yolov3_int8", "yolov3", 416, (BATCH,), 0.25, True,
+     {"nms_keep": 1, "conv_epilogue": 5}),
 )
 EXPORT_TIMED = 30           # batches timed a path, live and exported in turn
 EXPORT_CHILD_TIMEOUT = 600  # seconds for the fresh process of phase 18
@@ -1542,11 +1555,14 @@ def match_bf16(gpu, cpu) -> dict:
 
 
 # the kernels on each bf16 parity path, by wrapper name, with the
-# launches of one detect at 320 (besides the NMS's one and the gather's)
+# launches of one detect at 320 (besides the NMS's one, the gather's and
+# the conv epilogue's, BF16_EPILOGUES: that kernel equals its plain
+# version bit for bit, `epilogue_row`, so it moves no detection)
 BF16_KERNELS = {"fcos": {"bias_gn_relu": 40, "fused_bottleneck": 6},
                 "retinanet": {"conv3x3_chain": 10, "fused_bottleneck": 6},
                 "retinanet_r101": {"conv3x3_chain": 10,
                                    "fused_bottleneck": 6}}
+BF16_EPILOGUES = {"fcos": 34, "retinanet": 34, "retinanet_r101": 85}
 
 
 def _kernel_sites() -> dict:
@@ -1558,16 +1574,27 @@ def _kernel_sites() -> dict:
     from mydetection_tpu_torch.models import retinanet as retina_mod
 
     return {"bias_gn_relu": (fcos_mod, "pick", lambda kernel, plain: plain),
-            "fused_bottleneck": (resnet_mod, "kernels_enabled", lambda: False),
+            "fused_bottleneck": (resnet_mod, "takes_kernel",
+                                 lambda module, x: False),
             "conv3x3_chain": (retina_mod, "kernels_enabled", lambda: False)}
+
+
+def plain_launches(base: dict, name: str) -> dict:
+    """`base`'s launches with kernel `name` routed plain: the fused
+    bottleneck's six blocks then run unfused, and their 19 convs launch
+    the conv epilogue."""
+    want = {**base, name: 0}
+    if name == "fused_bottleneck":
+        want["conv_epilogue"] += 19
+    return want
 
 
 @contextlib.contextmanager
 def plain_kernel(name: str):
     """Route one kernel's call site to its plain version for the
     duration by rebinding the routing name it reads: fcos's towers'
-    `pick` (#3), the bottleneck's and the RetinaNet subnet's
-    `kernels_enabled` (#7, #6). A switch of this script only:
+    `pick` (#3), the RetinaNet subnet's `kernels_enabled` (#6), the
+    bottleneck's `takes_kernel` (#7). A switch of this script only:
     `kernels.route.plain_versions` routes every kernel at once."""
     module, attr, plain = _kernel_sites()[name]
     saved = getattr(module, attr)
@@ -1596,6 +1623,26 @@ def kernel_calls(names):
     finally:
         for name, fn in saved.items():
             setattr(sites[name][0], name, fn)
+
+
+@contextlib.contextmanager
+def op_calls(op):
+    """Record every call of the custom op `op` (a `torch.ops` packet) as
+    it dispatches, whichever Python name reached it: yields a list
+    filled with (args, output) in call order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is op:
+                calls.append((args, out))
+            return out
+
+    with Record():
+        yield calls
 
 
 def f32_distance(outs, refs) -> tuple[float, float]:
@@ -1683,10 +1730,11 @@ def phase_parity_bf16() -> None:
                 canvas[None], [info], conf_thres=conf, nms_iou=IOU_THRES)[0]
 
         cpu = detect("cpu")
-        base = {"nms_keep": 1, "gather_rows": 1, **BF16_KERNELS[name]}
+        base = {"nms_keep": 1, "gather_rows": 1, **BF16_KERNELS[name],
+                "conv_epilogue": BF16_EPILOGUES[name]}
         # the all-kernels run records each kernel's calls
         runs = [("all kernels", kernel_calls(BF16_KERNELS[name]), base)]
-        runs += [(f"{k} plain", plain_kernel(k), {**base, k: 0})
+        runs += [(f"{k} plain", plain_kernel(k), plain_launches(base, k))
                  for k in BF16_KERNELS[name]]
         runs.append(("all plain", plain_versions(), {}))
         shares = []
@@ -1799,8 +1847,9 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
     inputs (rotated: the suppress kernel's, and the boxes behind its IoU
     matrix; with capture_gn, every bias_gn_relu call's inputs too), the
     gather's (src, sel), every conv3x3_chain call's (x, packed,
-    biases) and every fused_bottleneck call's (x, folded) of the counted
-    run, and the routed blocks in call order."""
+    biases), every fused_bottleneck call's (x, folded) and every
+    mydet::conv_epilogue call's (arguments, output) of the counted run,
+    and the routed blocks in call order."""
     from mydetection_tpu_torch import Detector, kernels
     from mydetection_tpu_torch.kernels.bottleneck import fused_bottleneck
     from mydetection_tpu_torch.kernels.gather import gather_rows
@@ -1852,6 +1901,9 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         captured["bottleneck"].append((x, folded))
         return fused_bottleneck(x, *folded)
 
+    # the epilogue's call sites read it through `layers.epilogue_kernel`
+    # at each call, so its calls are recorded where they dispatch
+    recorder = op_calls(torch.ops.mydet.conv_epilogue)
     ops_nms.nms_keep = capture_nms
     ops_nms.gather_rows = capture_gather
     ops_rot.nms_from_iou_keep = capture_suppress
@@ -1862,8 +1914,9 @@ def drive_main(name: str, size: int, conf: float, smi: str, expect: dict,
         fcos_mod.bias_gn_relu = capture_gn_call
     try:
         kernels.reset_launches()
-        dets = det.detect_prepared(canvases, infos, conf_thres=conf,
-                                   nms_iou=IOU_THRES)
+        with recorder as captured["epilogue"]:
+            dets = det.detect_prepared(canvases, infos, conf_thres=conf,
+                                       nms_iou=IOU_THRES)
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     finally:
         ops_nms.nms_keep = nms_keep
@@ -2482,6 +2535,93 @@ def bottleneck_row(captured: dict) -> dict:
     }
 
 
+def kernel_device_ns(fn, reps: int) -> list[int]:
+    """`fn()` once, then `reps` times under the profiler: the device ns
+    of each kernel it launched, in launch order."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [d for _, d in sorted(
+        (e.start_ns(), e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA)]
+
+
+def epilogue_bytes(args) -> int:
+    """A conv_epilogue call's least traffic: x read and the output
+    written once, the residual read (the per-channel vectors, a few KB,
+    left out)."""
+    x, residual = args[0], args[5]
+    return x.numel() * x.element_size() * (2 if residual is None else 3)
+
+
+def epilogue_row(captured: dict, path: str) -> dict:
+    """The conv epilogue at a main path's own inputs: every call of one
+    batch-32 forward, each bit-equal to its plain version (the eager
+    ops) and to what the forward got; device time summed a forward by
+    the profiler (CUDA events would time the host's pace: a small call's
+    launch takes longer than its kernel), beside the bound and the plain
+    version's, and each map's share of the HBM rate."""
+    from mydetection_tpu_torch.kernels.epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+    )
+
+    calls = captured["epilogue"]
+    reps = 5
+    with torch.inference_mode():
+        for args, out in calls:
+            want = conv_epilogue_plain(*args)
+            if not (torch.equal(out, want)
+                    and torch.equal(conv_epilogue(*args), want)):
+                raise AssertionError(f"conv_epilogue differs from its plain "
+                                     f"version on {path}'s "
+                                     f"{tuple(args[0].shape)} call")
+        kernel = kernel_device_ns(
+            lambda: [conv_epilogue(*a) for a, _ in calls], reps)
+        plain = kernel_device_ns(
+            lambda: [conv_epilogue_plain(*a) for a, _ in calls], reps)
+    if len(kernel) != reps * len(calls):
+        raise AssertionError(f"{path}: {len(kernel)} device kernels for "
+                             f"{reps} x {len(calls)} conv_epilogue calls")
+    shares: dict[str, list[float]] = {}
+    for i, (args, _) in enumerate(calls):
+        x = args[0]
+        key = (f"{x.shape[1]}x{x.shape[2]}x{x.shape[3]}"
+               f"{'+res' if args[5] is not None else ''}")
+        ms = np.mean(kernel[i::len(calls)]) / 1e6
+        shares.setdefault(key, []).append(
+            epilogue_bytes(args) / HBM_BYTES_PER_S * 1e3 / ms)
+    bound = sum(epilogue_bytes(a) for a, _ in calls) / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": "conv_epilogue", "route": "cuda", "path": path,
+        "source": "mydetection_tpu_torch/kernels/csrc/epilogue.cu",
+        "replaces": None, "launches": captured["launches"]["conv_epilogue"],
+        "max_abs_err": 0.0, "ms": sum(kernel) / 1e6 / reps,
+        "plain_ms": sum(plain) / 1e6 / reps, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None,
+        "hbm_share_by_map": {k: round(100 * float(np.mean(v)), 1)
+                             for k, v in shares.items()},
+        "note": f"profiler device time of the {len(calls)} calls of one "
+                f"{path} batch-32 bf16 forward, summed, each bit-equal to "
+                "the plain version (the eager ops); replaces no TPU kernel "
+                "(XLA fuses a conv's epilogue into the conv); library_ms "
+                "none: no single PyTorch call computes BN, the activation "
+                "and the residual; hbm_share_by_map is each map's (C x H x "
+                "W) bound over its mean device time",
+    }
+    print(f"conv epilogue on the {path} main path: {len(calls)} calls, "
+          f"bit-equal to plain; kernel {row['ms']:.4f} ms summed (bound "
+          f"{bound:.4f} ms by bytes, {100 * bound / row['ms']:.1f}%), plain "
+          f"{row['plain_ms']:.4f} ms; share of HBM by map (%): "
+          f"{row['hbm_share_by_map']}", flush=True)
+    return row
+
+
 def train_step_gn_inputs(step, data, lr: float) -> dict:
     """Run one train step with the FCOS towers' `BiasGNReLU` swapped for
     a subclass that records what reaches the two trainable GN kernels:
@@ -2854,6 +2994,7 @@ def phase_evaluate_quant(data: dict, smi: str) -> None:
         want = {k: v * batches for k, v in per_batch.items()}
         if name == "fcos":      # the calibration walk's towers
             want["bias_gn_relu"] += 40
+        want["conv_epilogue"] += per_batch["conv_epilogue"]   # its prologue
         launches = read_launches()
         check_launches(f"evaluate --quantized {name}", launches, want)
         if not all(np.isfinite(v) for v in stats.values()):
@@ -2897,8 +3038,9 @@ def phase_train_cli(data: dict, smi: str, synthetic: dict) -> None:
             "--val-max-images", "32", "--val-ann", data["ann"]]
     last, out, wall = run_cli(train.main, common + yolo + [
         "--iterations", str(TRAIN_CLI_ITERS), "--tensorboard-dir", tb])
-    # 32 validation images are one batch: one NMS launch
-    check_launches("train cli yolov3", read_launches(), {"nms_keep": 1})
+    # 32 validation images are one batch: one NMS launch, 75 epilogues
+    check_launches("train cli yolov3", read_launches(),
+                   {"nms_keep": 1, "conv_epilogue": 75})
     rows = _metrics(ck, "yolov3")
     steps = [r for r in rows if "total" in r]
     vals = [r for r in rows if "val_AP" in r]
@@ -3870,30 +4012,35 @@ def main() -> int:
     phase_parity()
     phase_parity_bf16()
     phase_train_parity()
-    yolo = drive_main("yolov3", 416, 0.25, smi, {"nms_keep": 1})
-    rows = [nms_row(yolo, "yolov3")]
+    yolo = drive_main("yolov3", 416, 0.25, smi,
+                      {"nms_keep": 1, "conv_epilogue": 75})
+    rows = [nms_row(yolo, "yolov3"), epilogue_row(yolo, "yolov3")]
     t0 = time.perf_counter()
-    yolo = drive_main("yolov3_608", 608, 0.25, smi, {"nms_keep": 1})
+    yolo = drive_main("yolov3_608", 608, 0.25, smi,
+                      {"nms_keep": 1, "conv_epilogue": 75})
     nms_row(yolo, "yolov3_608")
     print(f"main: yolov3_608-608 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     del yolo
     fcos = drive_main("fcos", 608, 0.005, smi,
                       {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
-                       "fused_bottleneck": 6}, capture_gn=True)
-    rows.append(gn_row(fcos))
+                       "fused_bottleneck": 6, "conv_epilogue": 34},
+                      capture_gn=True)
+    rows += [gn_row(fcos), epilogue_row(fcos, "fcos")]
     nms_row(fcos, "fcos")
     del fcos
-    rapid = drive_main("rapid", 1024, 0.3, smi, {"nms_from_iou_keep": 1})
+    rapid = drive_main("rapid", 1024, 0.3, smi,
+                       {"nms_from_iou_keep": 1, "conv_epilogue": 75})
     rows.append(rotated_row(rapid))
     del rapid
     retina_launches = {"nms_keep": 1, "conv3x3_chain": 10, "gather_rows": 1,
-                       "fused_bottleneck": 6}
+                       "fused_bottleneck": 6, "conv_epilogue": 34}
     retina = drive_main("retinanet", 608, 0.005, smi, retina_launches)
     rows += [tower_row(retina), gather_row(retina), bottleneck_row(retina)]
     nms_row(retina, "retinanet")
     del retina
-    drive_main("retinanet_r101", 608, 0.005, smi, retina_launches)
+    drive_main("retinanet_r101", 608, 0.005, smi,
+               {**retina_launches, "conv_epilogue": 85})
     phase_quant(smi)
     train = phase_train_main(smi)
     rows += [gn_fwd_stats_row(train), gn_bwd_row(train)]

@@ -15,6 +15,8 @@ call these ops on CUDA tensors and their plain versions on CPU tensors.
     mydet::conv3x3_chain       kernel #6, csrc/tower.cu
     mydet::fused_bottleneck    kernel #7, csrc/bottleneck.cu
     mydet::gather_rows         kernel #8, csrc/gather.cu
+    mydet::conv_epilogue       a conv's eval epilogue, csrc/epilogue.cu
+                               (no TPU counterpart)
 
 The training kernels (#4, #5) stay `torch.autograd.Function`s
 (`gn.BiasGNReLU`): no exported or served program runs them. #6 and #7
@@ -30,6 +32,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from mydetection_tpu_torch.kernels import (
     bottleneck,
+    epilogue,
     gather,
     gn,
     nms,
@@ -58,6 +61,10 @@ _OPS = {
         bottleneck.fused_bottleneck_launch, bottleneck.fused_bottleneck_fake),
     "gather_rows": ("(Tensor src, Tensor sel) -> Tensor",
                     gather.gather_rows_launch, gather.gather_rows_fake),
+    "conv_epilogue": (
+        "(Tensor x, Tensor? scale, Tensor bias, Tensor? mean, Tensor? var, "
+        "Tensor? residual, int act, bool residual_after) -> Tensor",
+        epilogue.conv_epilogue_launch, epilogue.conv_epilogue_fake),
 }
 
 OP_NAMES = tuple(f"{NAMESPACE}::{name}" for name in _OPS)

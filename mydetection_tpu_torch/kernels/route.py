@@ -15,12 +15,24 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 _state = threading.local()
 
 
 def kernels_enabled() -> bool:
     """False inside `plain_versions()` on this thread."""
     return not getattr(_state, "plain", False)
+
+
+def takes_kernel(module: torch.nn.Module, x: torch.Tensor) -> bool:
+    """Whether `module`'s forward on x takes a hand-written kernel: x on
+    the card, eval mode, no gradient needed, and the kernels not routed
+    to their plain versions on this thread."""
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+    return (x.device.type == "cuda" and not module.training
+            and not needs_grad and kernels_enabled())
 
 
 def pick(kernel, plain):

@@ -28,7 +28,7 @@ class ResBlock(nn.Module):
         self.conv2 = ConvBNLeaky(c // 2, c, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x), residual=x)
 
 
 class Stage(nn.Module):

@@ -20,6 +20,12 @@ A port of `mydetection_tpu/models/layers.py` that keeps its arithmetic:
 
 Activations are NCHW here (the JAX package is NHWC); the model's input
 and its raw head outputs keep JAX's NHWC layout (`models/yolov3.py`).
+
+On the card in eval mode with no gradient needed, `ConvBN` and
+`ConvBNLeaky` run everything after the conv (BN, the activation and a
+residual) as one `kernels.epilogue.conv_epilogue` launch
+(`epilogue_kernel`), bit-equal to the eager ops they keep everywhere
+else.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from torch import nn
 from mydetection_tpu_torch.parallel.mesh import replica_group
 
 LEAKY_SLOPE = 0.1
+# the activations `kernels.epilogue.conv_epilogue` applies after BN
+ACT_NONE, ACT_RELU, ACT_LEAKY = 0, 1, 2
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -134,8 +142,20 @@ class BatchNorm(nn.Module):
         return batch_norm(x, *bn_fold(self.scale, self.bias, mean, var))
 
 
+def epilogue_kernel(module: nn.Module, x: torch.Tensor):
+    """`kernels.epilogue.conv_epilogue` where `module`'s forward on x
+    takes it (`kernels.route.takes_kernel`: x on the card, eval mode, no
+    gradient needed, the kernels not routed plain), else None. Imported
+    at the call: the kernels import this module for their plain
+    versions, so this module does not import them."""
+    from mydetection_tpu_torch.kernels import epilogue, route
+    return epilogue.conv_epilogue if route.takes_kernel(module, x) else None
+
+
 class ConvBN(nn.Module):
-    """Conv → BN, then ReLU when `relu` (the ResNet building block)."""
+    """Conv → BN, plus `residual` when one is given, then ReLU when
+    `relu` (the ResNet building block; a bottleneck's conv3 takes the
+    shortcut as its residual, so the block's ReLU follows the add)."""
 
     def __init__(self, c_in: int, c_out: int, ksize: int, stride: int = 1,
                  *, relu: bool = True):
@@ -145,13 +165,24 @@ class ConvBN(nn.Module):
         self.conv = nn.Conv2d(c_in, c_out, ksize, bias=False)
         self.bn = BatchNorm(c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(conv2d(x, self.conv.weight, stride=self.stride))
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        y = conv2d(x, self.conv.weight, stride=self.stride)
+        kernel = epilogue_kernel(self, x)
+        if kernel is not None:
+            bn = self.bn
+            return kernel(y, bn.scale, bn.bias, bn.mean, bn.var, residual,
+                          ACT_RELU if self.relu else ACT_NONE, False)
+        y = self.bn(y)
+        if residual is not None:
+            y = y + residual
         return torch.relu(y) if self.relu else y
 
 
 class ConvBNLeaky(nn.Module):
-    """Conv → BN → LeakyReLU(0.1), the Darknet building block."""
+    """Conv → BN → LeakyReLU(0.1), the Darknet building block, plus
+    `residual` after the activation when one is given (a Darknet
+    residual block's second conv)."""
 
     def __init__(self, c_in: int, c_out: int, ksize: int, stride: int = 1):
         super().__init__()
@@ -159,9 +190,16 @@ class ConvBNLeaky(nn.Module):
         self.conv = nn.Conv2d(c_in, c_out, ksize, bias=False)
         self.bn = BatchNorm(c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.bn(conv2d(x, self.conv.weight,
-                                         stride=self.stride)))
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        y = conv2d(x, self.conv.weight, stride=self.stride)
+        kernel = epilogue_kernel(self, x)
+        if kernel is not None:
+            bn = self.bn
+            return kernel(y, bn.scale, bn.bias, bn.mean, bn.var, residual,
+                          ACT_LEAKY, True)
+        y = leaky_relu(self.bn(y))
+        return y if residual is None else residual + y
 
 
 @torch.no_grad()

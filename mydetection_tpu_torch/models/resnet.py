@@ -18,7 +18,9 @@ each on the card in eval mode when no gradient is needed, their BN
 folded into the weights once per call. Everywhere else (the CPU, train
 mode, autograd, stride-2 blocks, stages 2 and 3) a block is the JAX
 `_bottleneck(train=False)` arithmetic: conv, BN in the activation
-dtype, ReLU.
+dtype, ReLU; on the card in eval mode each of its `ConvBN`s runs BN,
+ReLU and (conv3) the shortcut's add as one `conv_epilogue` launch after
+its conv (`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from mydetection_tpu_torch.kernels.bottleneck import (
     fold_bottleneck,
     fused_bottleneck,
 )
-from mydetection_tpu_torch.kernels.route import kernels_enabled
+from mydetection_tpu_torch.kernels.route import takes_kernel
 from mydetection_tpu_torch.models.layers import (
     ConvBN,
     max_pool,
@@ -67,25 +69,23 @@ class Bottleneck(nn.Module):
         self.fused = fused
         self.conv1 = ConvBN(c_in, c_mid, 1)
         self.conv2 = ConvBN(c_mid, c_mid, 3, stride)
-        self.conv3 = ConvBN(c_mid, c_out, 1, relu=False)
+        self.conv3 = ConvBN(c_mid, c_out, 1)   # ReLU after the shortcut
         self.down = (ConvBN(c_in, c_out, 1, stride, relu=False)
                      if downsample else None)
 
     def takes_kernel(self, x: torch.Tensor) -> bool:
-        """Whether `forward(x)` launches the fused kernel: a routed block,
-        x on the card, eval mode, no gradient needed, and the kernels
-        not routed to their plain versions (`kernels.plain_versions`)."""
-        needs_grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        return (self.fused and x.device.type == "cuda" and not self.training
-                and not needs_grad and kernels_enabled())
+        """Whether `forward(x)` launches the fused kernel: a routed block
+        where `kernels.route.takes_kernel` holds (x on the card, eval
+        mode, no gradient needed, the kernels not routed plain)."""
+        return self.fused and takes_kernel(self, x)
 
     def unfused(self, x: torch.Tensor) -> torch.Tensor:
-        """The JAX `_bottleneck`: conv → BN → ReLU twice, conv → BN, the
-        shortcut, the residual add and the ReLU."""
-        y = self.conv3(self.conv2(self.conv1(x)))
+        """The JAX `_bottleneck`: conv → BN → ReLU twice, the shortcut,
+        then conv → BN, the residual add and the ReLU (on the card the
+        add and the ReLU ride in conv3's epilogue)."""
+        y = self.conv2(self.conv1(x))
         sc = x if self.down is None else self.down(x)
-        return torch.relu(y + sc)
+        return self.conv3(y, residual=sc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_kernel(x):

@@ -23,6 +23,7 @@ from mydetection_tpu_torch.models.darknet import Darknet53
 from mydetection_tpu_torch.models.layers import (
     ConvBNLeaky,
     conv2d,
+    epilogue_kernel,
     normalize_input,
     upsample2x,
 )
@@ -64,8 +65,13 @@ class Branch(nn.Module):
         self.out = nn.Conv2d(c_mid, c_out, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv2d(self.conv(x), self.out.weight)
-        out = out + self.out.bias.to(out.dtype)[:, None, None]
+        y = self.conv(x)
+        out = conv2d(y, self.out.weight)
+        kernel = epilogue_kernel(self, y)
+        if kernel is not None:
+            out = kernel(out, None, self.out.bias)
+        else:
+            out = out + self.out.bias.to(out.dtype)[:, None, None]
         return out.permute(0, 2, 3, 1)
 
 

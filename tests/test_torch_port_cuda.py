@@ -64,6 +64,7 @@ from mydetection_tpu_torch.kernels.bottleneck import (  # noqa: E402
     fused_bottleneck,
     fused_bottleneck_plain,
 )
+from mydetection_tpu_torch.kernels.epilogue import conv_epilogue  # noqa: E402
 from mydetection_tpu_torch.kernels import gn  # noqa: E402
 from mydetection_tpu_torch.kernels.gn import (  # noqa: E402
     bias_gn_relu,
@@ -416,25 +417,27 @@ def _cuda_vs_cpu(name, size, conf, canvas, info, kernel_launches):
 def test_cuda_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image(), 416, 8, 58)
     _cuda_vs_cpu("yolov3", 416, 0.25, canvas, info,
-                 {nms_keep: 1, fused_bottleneck: 0})
+                 {nms_keep: 1, fused_bottleneck: 0, conv_epilogue: 75})
 
 
 def test_cuda_yolov3_608_detector_matches_cpu(cuda, no_tf32):
     """yolov3_608 at its registered size on the golden image letterboxed
     to 608: chip_smoke's parity (float32, TF32 off, the same seeded
     weights; counts and classes equal, scores within 1e-4, boxes within
-    1e-2 px, row by row or by a one-to-one match), one NMS launch and no
-    other kernel."""
+    1e-2 px, row by row or by a one-to-one match), one NMS launch and 75
+    conv epilogues."""
     check_parity("yolov3_608", *parity_cases()["yolov3_608"],
-                 {nms_keep: 1, fused_bottleneck: 0})
+                 {nms_keep: 1, fused_bottleneck: 0, conv_epilogue: 75})
 
 
 def test_cuda_fcos_detector_matches_cpu(cuda):
-    """40 GN launches (8 tower GNs x 5 levels), one NMS launch and six
-    fused bottlenecks (stage 0, stage 1's blocks 1-3)."""
+    """40 GN launches (8 tower GNs x 5 levels), one NMS launch, six
+    fused bottlenecks (stage 0, stage 1's blocks 1-3) and 34 conv
+    epilogues (the stem and the unfused blocks' convs)."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("fcos", 320, 0.005, canvas, info,
-                 {nms_keep: 1, bias_gn_relu: 40, fused_bottleneck: 6})
+                 {nms_keep: 1, bias_gn_relu: 40, fused_bottleneck: 6,
+                  conv_epilogue: 34})
 
 
 def test_cuda_rapid_detector_matches_cpu(cuda):
@@ -443,7 +446,8 @@ def test_cuda_rapid_detector_matches_cpu(cuda):
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     _cuda_vs_cpu("rapid", 320, 0.3, canvas, info, {nms_from_iou_keep: 1,
                                                    nms_keep: 0,
-                                                   fused_bottleneck: 0})
+                                                   fused_bottleneck: 0,
+                                                   conv_epilogue: 75})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -573,7 +577,7 @@ def test_data_parallel_fcos_step_equals_one_device(cuda, dtype):
 def test_fcos_detect_launches_no_train_kernel(cuda):
     """Detect runs under inference mode: the inference GN kernel 40
     times, the NMS and the class-row gather once, the fused bottleneck
-    six times, the trainable GN kernels never."""
+    six times, the conv epilogue 34, the trainable GN kernels never."""
     canvas, info = padded_canvas(golden_image()[:, 50:350], 320, 10, 10)
     det = Detector("fcos", device="cuda", input_size=320, rng_seed=0)
     kernels.reset_launches()
@@ -581,7 +585,7 @@ def test_fcos_detect_launches_no_train_kernel(cuda):
     got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
     want.update(bias_gn_relu=40, nms_keep=1, gather_rows=1,
-                fused_bottleneck=6)
+                fused_bottleneck=6, conv_epilogue=34)
     assert got == want
 
 
@@ -769,15 +773,16 @@ def test_cuda_retinanet_detector_matches_cpu(cuda, no_tf32):
     gather once, the fused bottleneck six times."""
     check_parity("retinanet", *noise_canvas(320), 0.005,
                  {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1,
-                  fused_bottleneck: 6}, box_floor=True)
+                  fused_bottleneck: 6, conv_epilogue: 34}, box_floor=True)
 
 
 def test_cuda_retinanet_r101_detector_matches_cpu(cuda, no_tf32):
     """The same parity for ResNet-101: six fused bottlenecks too (the
-    deeper stage 2 stays on cuDNN)."""
+    deeper stage 2 stays on cuDNN, each conv followed by the epilogue:
+    85)."""
     check_parity("retinanet_r101", *noise_canvas(320), 0.005,
                  {nms_keep: 1, conv3x3_chain: 10, gather_rows: 1,
-                  fused_bottleneck: 6}, box_floor=True)
+                  fused_bottleneck: 6, conv_epilogue: 85}, box_floor=True)
 
 
 def test_retinanet_detect_launches(cuda):
@@ -788,7 +793,7 @@ def test_retinanet_detect_launches(cuda):
     got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
     want.update(nms_keep=1, conv3x3_chain=10, gather_rows=1,
-                fused_bottleneck=6)
+                fused_bottleneck=6, conv_epilogue=34)
     assert got == want
     assert len(dets[0]) > 0 and np.isfinite(dets[0].boxes_xyxy).all()
 
@@ -983,11 +988,12 @@ QUANT_PARITY_EQUAL = {"yolov3": 0.66, "rapid": 0.66, "fcos": 0.98,
 QUANT_PARITY_COSINE = {"yolov3": 0.99, "rapid": 0.999, "fcos": 0.9999,
                        "retinanet": 0.9999}
 QUANT_LAUNCHES = {
-    "yolov3": {"nms_keep": 1},
-    "rapid": {"nms_from_iou_keep": 1},
-    "fcos": {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1},
-    "retinanet": {"nms_keep": 1, "gather_rows": 1},
-    "retinanet_r101": {"nms_keep": 1, "gather_rows": 1},
+    "yolov3": {"nms_keep": 1, "conv_epilogue": 5},
+    "rapid": {"nms_from_iou_keep": 1, "conv_epilogue": 5},
+    "fcos": {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
+             "conv_epilogue": 1},
+    "retinanet": {"nms_keep": 1, "gather_rows": 1, "conv_epilogue": 1},
+    "retinanet_r101": {"nms_keep": 1, "gather_rows": 1, "conv_epilogue": 1},
 }
 
 
@@ -1136,7 +1142,9 @@ def test_int8_detect_launches(cuda, name):
     """The int8 detect at 320, batch 2, launches exactly its path's
     kernels: the NMS (rapid: the suppress kernel), the gather on the
     multi-label families and, on fcos, the GN kernel 40 times at
-    float32; never the conv chain or the fused bottleneck."""
+    float32, the conv epilogue in the float prologue (Darknet's stem to
+    stage 1's downsample, 5; ResNet's stem, 1); never the conv chain or
+    the fused bottleneck."""
     det = Detector(name, device="cuda", input_size=320, rng_seed=0,
                    quantized=True)
     canvases = np.stack([noise_canvas(320, s)[0] for s in (1, 2)])
@@ -1178,10 +1186,12 @@ def op_cases(dev):
         ("conv3x3_chain", (tx, packed, biases)),
         ("fused_bottleneck", (x, *f)),
         ("gather_rows", (src, sel)),
+        ("conv_epilogue", (gx, *gn_args, gn_args[0].abs() + 0.5, gx, 2,
+                           True)),
     ]
 
 
-@pytest.mark.parametrize("index", range(6))
+@pytest.mark.parametrize("index", range(7))
 def test_custom_op_fake_matches_real(cuda, index):
     """`torch.library.opcheck` on each op: its schema, its fake
     implementation's shapes, dtypes and strides against the real one's,
@@ -1203,9 +1213,9 @@ def export_pair(name, tmp_path, **kw):
 
 
 @pytest.mark.parametrize("name,want", [
-    ("yolov3", {"nms_keep": 1}),
+    ("yolov3", {"nms_keep": 1, "conv_epilogue": 75}),
     ("fcos", {"nms_keep": 1, "bias_gn_relu": 40, "gather_rows": 1,
-              "fused_bottleneck": 6}),
+              "fused_bottleneck": 6, "conv_epilogue": 34}),
 ])
 def test_exported_equals_live_and_launches(cuda, tmp_path, name, want):
     """The exported bf16 program on the card answers bit for bit as the

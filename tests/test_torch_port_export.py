@@ -426,3 +426,45 @@ def test_kernel_route_artifact_stays_put(artifact):
     kernels, so the load refuses."""
     with pytest.raises(ValueError, match="without use_pallas=False"):
         load_exported(artifact, device="meta")
+
+
+def test_epilogue_route_exports_the_op(det, work, monkeypatch):
+    """With the conv epilogue's route forced onto CPU tensors (the route
+    the card takes: each conv's BN, activation and residual as one
+    `mydet::conv_epilogue` call), an exported yolov3 program calls the op
+    once a conv (72 conv-BN-leaky, 3 output biases), its metadata lists
+    the op, and, with the op's plain version bound to the CPU for the
+    test, it answers as the live Detector bit for bit."""
+    from mydetection_tpu_torch.kernels import epilogue, route
+    from mydetection_tpu_torch.kernels.route import kernels_enabled
+
+    def forced(module, x):
+        return not module.training and kernels_enabled()
+
+    def op(x, scale, bias, mean=None, var=None, residual=None, act=0,
+           residual_after=True):
+        return torch.ops.mydet.conv_epilogue(x, scale, bias, mean, var,
+                                             residual, act, residual_after)
+
+    monkeypatch.setattr(route, "takes_kernel", forced)
+    monkeypatch.setattr(epilogue, "conv_epilogue", op)
+    path = str(work / "epilogue.npz")
+    meta = export_detector(det, path, batch_size=2)
+    assert "mydet::conv_epilogue" in meta["custom_ops"]
+    cpu_impl = torch.library.Library("mydet", "IMPL")
+    try:
+        cpu_impl.impl("conv_epilogue", epilogue.conv_epilogue_plain, "CPU")
+        served = load_exported(path)
+        [program] = served._calls.values()
+        target = torch.ops.mydet.conv_epilogue.default
+        assert sum(n.target is target
+                   for n in program.gm.graph.nodes) == 75
+        c = canvases(2, seed=5)
+        got = served._run(c, CONF)
+        monkeypatch.undo()
+        want = det._run_batch(c, CONF, det.cfg.nms_iou, 2)
+    finally:
+        cpu_impl._destroy()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert want["valid"].any()
