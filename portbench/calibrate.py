@@ -35,21 +35,24 @@ def free(device):
 
 
 def detect_readings(loaded, seed, device) -> dict:
-    cfg, mix = loaded["config"], loaded["traffic"]
+    cfg, mix, family = loaded["config"], loaded["traffic"], loaded["family"]
     pool = traffic.detect_pool(mix, cfg["input_size"], seed, device)
-    state = harness.reference_state(cfg, pool, seed, device)
-    fp8, _, _ = harness.reference_detections(cfg, pool, state, device,
-                                             lowered="fp8")
+    state = harness.reference_state(family, cfg, pool, seed, device)
+    fp8, _, _ = harness.reference_detections(family, cfg, pool, state,
+                                             device, lowered="fp8")
     control = [[(d["boxes"], d["scores"], d["classes"]) for d in batch]
                for batch in fp8]
-    dets, dense, _ = harness.reference_detections(cfg, pool, state, device)
-    return {"fp8": harness.judge_detections(cfg, control, dets, dense)}
+    dets, dense, _ = harness.reference_detections(family, cfg, pool, state,
+                                                  device)
+    return {"fp8": harness.judge_detections(family, cfg, control, dets,
+                                            dense)}
 
 
 def train_readings(loaded, seed, device) -> dict:
-    cfg, mix = loaded["config"], loaded["traffic"]
+    cfg, mix, family = loaded["config"], loaded["traffic"], loaded["family"]
     with harness.tf32_off():
-        pool, state, step = harness.train_setup(cfg, mix, seed, device,
+        pool, state, step = harness.train_setup(family, cfg, mix, seed,
+                                                device,
                                                 compute_dtype=torch.float32)
 
         def run_step(b, lr):
@@ -61,13 +64,13 @@ def train_readings(loaded, seed, device) -> dict:
                                                       cfg["train"], run_step)}
     del step
     free(device)
-    program["fp8"] = harness.reference_steps(cfg, pool, state, device,
-                                             lowered="fp8")
+    program["fp8"] = harness.reference_steps(family, cfg, pool, state,
+                                             device, lowered="fp8")
     free(device)
-    program["half_batch"] = harness.reference_steps(cfg, pool, state, device,
-                                                    half=True)
+    program["half_batch"] = harness.reference_steps(family, cfg, pool, state,
+                                                    device, half=True)
     free(device)
-    reference = harness.reference_steps(cfg, pool, state, device)
+    reference = harness.reference_steps(family, cfg, pool, state, device)
     leaves = cfg.get("kernel_leaves", [])
     out = {name: judge.train_numbers(p, reference, leaves)
            for name, p in program.items()}

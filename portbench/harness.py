@@ -22,7 +22,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from portbench import cells, judge, seeds, traffic, weights, yardstick
-from portbench.reference import models as ref_models
 from portbench.reference import postprocess as ref_post
 from portbench.reference import precision
 
@@ -158,24 +157,26 @@ def laps_text(laps: list) -> str:
         zip(laps, laps[1:]))
 
 
-def reference_state(cfg: dict, pool: list, seed: int, device) -> dict:
+def reference_state(family, cfg: dict, pool: list, seed: int,
+                    device) -> dict:
     """The reference model's weights from the seed, BatchNorm calibrated
     on the pool's first images, on the host."""
     with tf32_off():
         ref = weights.reference_model(
-            cfg["family"], cfg["num_classes"], seed, device,
+            family, cfg["num_classes"], seed, device,
             pool[0]["canvases"][:weights.CALIB_IMAGES])
     return {k: v.detach().cpu() for k, v in ref.state_dict().items()}
 
 
-def detect_setup(cfg: dict, mix: dict, seed: int, device, laps=None):
+def detect_setup(family, cfg: dict, mix: dict, seed: int, device,
+                 laps=None):
     from mydetection_tpu_torch.api import Detector
     from mydetection_tpu_torch.convert import to_jax_params
 
     laps = [] if laps is None else laps
     pool = traffic.detect_pool(mix, cfg["input_size"], seed, device)
     lap(laps, "inputs")
-    state = reference_state(cfg, pool, seed, device)
+    state = reference_state(family, cfg, pool, seed, device)
     flat = to_jax_params(state)
     lap(laps, "weights")
     det = Detector(cfg["model"], params=flat, device=device,
@@ -187,10 +188,10 @@ def detect_setup(cfg: dict, mix: dict, seed: int, device, laps=None):
 def detect_run(loaded: dict, seed: int, seconds: float, trace: bool,
                device: torch.device, t_start: float,
                detector=None) -> dict:
-    cfg, mix = loaded["config"], loaded["traffic"]
+    cfg, mix, family = loaded["config"], loaded["traffic"], loaded["family"]
     laps = [("start", t_start)]
     lap(laps, "imports")
-    pool, state, det = detect_setup(cfg, mix, seed, device, laps)
+    pool, state, det = detect_setup(family, cfg, mix, seed, device, laps)
     if detector is not None:    # the tests' faults: the program, broken
         det = detector(det)
     infos = [_program_infos(b["infos"]) for b in pool]
@@ -266,7 +267,7 @@ def detect_run(loaded: dict, seed: int, seconds: float, trace: bool,
                   f"{float(np.percentile(lat, 95)) * 1e3!r}, {len(lat)} batches"],
         "e2e": {"setup_s": setup_s, "detect_img_s": i * batch / wall}}
     ctx = {"kind": "detect", "device": device, "config": cfg, "mix": mix,
-           "batch": batch, "rate": i * batch / wall}
+           "family": family, "batch": batch, "rate": i * batch / wall}
     if trace:
         sync(device)
         early = stamps[:prof.before[0]] or stamps  # before the stretch
@@ -276,41 +277,41 @@ def detect_run(loaded: dict, seed: int, seconds: float, trace: bool,
                    batch_ms=[x * 1e3 for x in lat[:len(early)]],
                    rate=prof.rate(i, wall, batch), trace=prof.reduce(),
                    profiled_steps=prof.inside)
-    program = [[(d.boxes_xyxy, d.scores, d.classes) for d in kept[b]]
+    rows = family.GEOMETRY.rows
+    program = [[(rows(d), d.scores, d.classes) for d in kept[b]]
                for b in range(len(pool))]
     del det, kept
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers, nms_inputs = detect_check(cfg, pool, state, program, device)
+    numbers, nms_inputs = detect_check(family, cfg, pool, state, program,
+                                       device)
     ctx["nms_inputs"] = nms_inputs
     result.update(numbers=numbers, ctx=ctx)
     return result
 
 
-def reference_detections(cfg: dict, pool: list, state: dict, device,
+def reference_detections(family, cfg: dict, pool: list, state: dict, device,
                          lowered: str | None = None):
     """The reference's detections of every pool batch, an image; its
     dense boxes and class scores in image pixels, an image; and each
-    batch's NMS inputs on the canvas (for the NMS bound)."""
+    batch's NMS inputs on the canvas (for the NMS bound). Boxes are rows
+    of the family's GEOMETRY."""
+    to_original = family.GEOMETRY.to_original
     with tf32_off(), torch.device(device):
-        ref = ref_models.build(cfg["family"], cfg["num_classes"])
+        ref = family.build(cfg["num_classes"])
     ref.load_state_dict(state)
     ref.eval().requires_grad_(False)
     dets, dense_out, nms_inputs = [], [], []
     with tf32_off(), torch.no_grad(), precision.lowered(lowered):
         for b in pool:
-            dense = ref_models.dense(ref, cfg["family"], b["canvases"])
-            out = ref_post.postprocess(
-                dense, multi_label=cfg["multi_label"],
-                conf_thres=cfg["conf_thres"], iou_thres=cfg["nms_iou"],
-                pre_nms=cfg["pre_nms"], max_dets=cfg["max_dets"])
-            dets.append(ref_post.detections(out, b["infos"]))
-            scores = ref_models.class_scores(ref, cfg["family"],
-                                             b["canvases"], dense)
+            dense = family.dense(ref, b["canvases"])
+            out = family.postprocess(dense, cfg)
+            dets.append(ref_post.detections(out, b["infos"], to_original))
+            scores = family.class_scores(ref, b["canvases"], dense)
             boxes = dense["boxes"].cpu().numpy()
             for i, info in enumerate(b["infos"]):
-                dense_out.append({"boxes": ref_post.to_original(boxes[i], info),
+                dense_out.append({"boxes": to_original(boxes[i], info),
                                   "scores": scores[i].cpu().numpy(),
                                   "size": (info.ori_w, info.ori_h),
                                   "letterbox": (info.ratio, info.pad_x,
@@ -320,20 +321,23 @@ def reference_detections(cfg: dict, pool: list, state: dict, device,
     return dets, dense_out, nms_inputs
 
 
-def judge_detections(cfg: dict, program: list, dets: list,
+def judge_detections(family, cfg: dict, program: list, dets: list,
                      dense: list) -> dict:
     """`judge.detect_numbers` of per-batch detections against the
-    reference's, with the configuration's postprocess settings."""
+    reference's, in the family's geometry, with the configuration's
+    postprocess settings."""
     return judge.detect_numbers(
         [img for batch in program for img in batch],
         [img for batch in dets for img in batch], dense,
-        nms_iou=cfg["nms_iou"], conf_thres=cfg["conf_thres"],
-        max_dets=cfg["max_dets"], multi_label=cfg["multi_label"])
+        geometry=family.GEOMETRY, nms_iou=cfg["nms_iou"],
+        conf_thres=cfg["conf_thres"], max_dets=cfg["max_dets"],
+        multi_label=cfg["multi_label"])
 
 
-def detect_check(cfg, pool, state, program, device):
-    dets, dense, nms_inputs = reference_detections(cfg, pool, state, device)
-    return judge_detections(cfg, program, dets, dense), nms_inputs
+def detect_check(family, cfg, pool, state, program, device):
+    dets, dense, nms_inputs = reference_detections(family, cfg, pool, state,
+                                                   device)
+    return judge_detections(family, cfg, program, dets, dense), nms_inputs
 
 
 # -- train ------------------------------------------------------------------
@@ -349,7 +353,18 @@ def norms(tensors: dict) -> dict:
     return dict(zip(names, torch.stack(vals).cpu().tolist()))
 
 
-def train_setup(cfg: dict, mix: dict, seed: int, device, laps=None,
+@torch.no_grad()
+def sgd(params: dict, grads: dict, velocity: dict, *, lr: float,
+        momentum: float, weight_decay: float) -> None:
+    """The reference's update: v ← m·v + g + wd·p, then p ← p − lr·v,
+    for every parameter."""
+    for k, p in params.items():
+        v = velocity[k]
+        v.mul_(momentum).add_(grads[k]).add_(weight_decay * p)
+        p.sub_(lr * v)
+
+
+def train_setup(family, cfg: dict, mix: dict, seed: int, device, laps=None,
                 **overrides):
     from mydetection_tpu_torch.registry import get_model
     from mydetection_tpu_torch.training import make_train_step
@@ -360,8 +375,8 @@ def train_setup(cfg: dict, mix: dict, seed: int, device, laps=None,
     lap(laps, "inputs")
     calib = pool[0]["images"][:weights.CALIB_IMAGES].to(device)
     with tf32_off():
-        ref = weights.reference_model(cfg["family"], cfg["num_classes"],
-                                      seed, device, calib, head_init=True)
+        ref = weights.reference_model(family, cfg["num_classes"], seed,
+                                      device, calib, head_init=True)
     state = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
     lap(laps, "weights")
     overrides.setdefault("compute_dtype", getattr(torch, cfg["dtype"]))
@@ -403,11 +418,11 @@ def first_steps(step, pool: list, recipe: dict, run_step) -> dict:
 
 def train_run(loaded: dict, seed: int, seconds: float, trace: bool,
               device: torch.device, t_start: float, stepper=None) -> dict:
-    cfg, mix = loaded["config"], loaded["traffic"]
+    cfg, mix, family = loaded["config"], loaded["traffic"], loaded["family"]
     recipe = cfg["train"]
     laps = [("start", t_start)]
     lap(laps, "imports")
-    pool, state, step = train_setup(cfg, mix, seed, device, laps)
+    pool, state, step = train_setup(family, cfg, mix, seed, device, laps)
     marks, phases = Marks(device), []
 
     def run_step(b, lr):
@@ -466,7 +481,7 @@ def train_run(loaded: dict, seed: int, seconds: float, trace: bool,
                         f"steps {n}, last loss terms "
                         f"{ {k: float(v) for k, v in last.items()} }"]}
     ctx = {"kind": "train", "device": device, "config": cfg, "mix": mix,
-           "batch": batch, "rate": n * batch / wall}
+           "family": family, "batch": batch, "rate": n * batch / wall}
     if trace:
         early = phases[:prof.before[0]] or phases  # before the stretch
         ctx.update(fwd_ms=[marks.ms(a, f) for a, f, _ in early],
@@ -477,7 +492,7 @@ def train_run(loaded: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    reference = reference_steps(cfg, pool, state, device)
+    reference = reference_steps(family, cfg, pool, state, device)
     result["notes"].append("worst leaves [leaf, program, reference]: "
                            + json.dumps(judge.worst_leaves(program, reference)))
     result.update(numbers=judge.train_numbers(
@@ -485,7 +500,7 @@ def train_run(loaded: dict, seed: int, seconds: float, trace: bool,
     return result
 
 
-def reference_steps(cfg: dict, pool: list, state: dict, device, *,
+def reference_steps(family, cfg: dict, pool: list, state: dict, device, *,
                     lowered: str | None = None, half: bool = False) -> dict:
     """The reference's first CORRECT_STEPS steps from `state` on the pool's
     first batches: each step's total loss, each leaf's first gradient
@@ -493,7 +508,7 @@ def reference_steps(cfg: dict, pool: list, state: dict, device, *,
     half of every batch (a fault the check must catch)."""
     recipe = cfg["train"]
     with torch.device(device):
-        model = ref_models.build(cfg["family"], cfg["num_classes"])
+        model = family.build(cfg["num_classes"])
     model.load_state_dict(state)
     model.train()
     params = dict(model.named_parameters())
@@ -505,8 +520,8 @@ def reference_steps(cfg: dict, pool: list, state: dict, device, *,
         for i in range(CORRECT_STEPS):
             x = pool[i % len(pool)]
             rows = slice(0, x["images"].shape[0] // 2 if half else None)
-            terms = ref_models.loss(
-                model, cfg["family"], x["images"][rows].to(device),
+            terms = family.loss(
+                model, x["images"][rows].to(device),
                 x["boxes"][rows].to(device), x["classes"][rows].to(device),
                 x["valid"][rows].to(device))
             grads = torch.autograd.grad(terms["total"], list(params.values()),
@@ -515,9 +530,9 @@ def reference_steps(cfg: dict, pool: list, state: dict, device, *,
                      for (k, p), g in zip(params.items(), grads)}
             if i == 0:
                 grad = norms(grads)
-            ref_models.sgd(params, grads, velocity, lr=lrs[i],
-                           momentum=recipe["momentum"],
-                           weight_decay=recipe["weight_decay"])
+            sgd(params, grads, velocity, lr=lrs[i],
+                momentum=recipe["momentum"],
+                weight_decay=recipe["weight_decay"])
             losses.append(float(terms["total"].detach()))
             del terms, grads
     update = norms({k: params[k].detach() - p0[k] for k in p0})

@@ -65,6 +65,8 @@ from fnmatch import fnmatchcase
 
 import numpy as np
 
+from portbench.reference import postprocess as ref_post
+
 LEAF_FLOOR = 1e-3
 MATCH_IOU = 0.5
 MATCH_TIE = 0.01
@@ -75,30 +77,69 @@ EDGE = 0.5
 CLASS_OFFSET = np.float32(8192.0)
 
 
-def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    lt = np.maximum(a[:, None, :2], b[None, :, :2])
-    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
-    wh = np.clip(rb - lt, 0, None)
-    inter = wh[..., 0] * wh[..., 1]
+class AxisAligned:
+    """The detect check's box geometry for axis-aligned boxes: rows of
+    (x1, y1, x2, y2). A family's GEOMETRY (families/<family>.py) gives
+    these six parts, in whatever row layout its boxes take:
 
-    def area(x):
-        return np.clip(x[:, 2] - x[:, 0], 0, None) * np.clip(x[:, 3] - x[:, 1], 0, None)
-    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-9)
+      rows(detections)     the program's boxes of one image, in image
+                           pixels, from its `Detections`
+      to_original(boxes, info)
+                           the reference's canvas boxes of one image in
+                           image pixels, clipped as the program clips
+      iou(a, b)            the pairwise IoU (len(a), len(b))
+      grow(boxes)          each box grown by half a pixel a side
+      inside(boxes, size)  the boxes that clipping to the image (w, h)
+                           left untouched
+      on_canvas(boxes, classes, letterbox)
+                           the boxes back on the canvas (letterbox:
+                           ratio, pad_x, pad_y), shifted by CLASS_OFFSET
+                           times their class in float32, as the
+                           postprocess compares them
+    """
+
+    @staticmethod
+    def rows(detections) -> np.ndarray:
+        return detections.boxes_xyxy
+
+    to_original = staticmethod(ref_post.to_original)
+
+    @staticmethod
+    def iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        lt = np.maximum(a[:, None, :2], b[None, :, :2])
+        rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+        wh = np.clip(rb - lt, 0, None)
+        inter = wh[..., 0] * wh[..., 1]
+
+        def area(x):
+            return np.clip(x[:, 2] - x[:, 0], 0, None) * np.clip(x[:, 3] - x[:, 1], 0, None)
+        return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-9)
+
+    @staticmethod
+    def grow(boxes: np.ndarray) -> np.ndarray:
+        return boxes + np.array([-0.5, -0.5, 0.5, 0.5], np.float32)
+
+    @staticmethod
+    def inside(boxes: np.ndarray, size) -> np.ndarray:
+        w, h = size
+        return ((boxes[:, 0] > EDGE) & (boxes[:, 1] > EDGE)
+                & (boxes[:, 2] < w - EDGE) & (boxes[:, 3] < h - EDGE))
+
+    @staticmethod
+    def on_canvas(boxes: np.ndarray, classes: np.ndarray,
+                  letterbox) -> np.ndarray:
+        ratio, pad_x, pad_y = letterbox
+        canvas = (boxes * np.float32(ratio)
+                  + np.array([pad_x, pad_y, pad_x, pad_y], np.float32))
+        offset = canvas + (classes.astype(np.float32) * CLASS_OFFSET)[:, None]
+        return offset.astype(np.float32)
 
 
-def _match(pb: np.ndarray, dense_boxes: np.ndarray) -> np.ndarray:
+def _match(pb: np.ndarray, dense_boxes: np.ndarray, geometry) -> np.ndarray:
     """The IoU of each row with every reference box, both grown by half a
     pixel a side, so that a box the image's edge clipped to no area still
     overlaps its own."""
-    grow = np.array([-0.5, -0.5, 0.5, 0.5], np.float32)
-    return _iou(pb + grow, dense_boxes + grow)
-
-
-def _inside(boxes: np.ndarray, size) -> np.ndarray:
-    """Boxes that clipping to the image (w, h) left untouched."""
-    w, h = size
-    return ((boxes[:, 0] > EDGE) & (boxes[:, 1] > EDGE)
-            & (boxes[:, 2] < w - EDGE) & (boxes[:, 3] < h - EDGE))
+    return geometry.iou(geometry.grow(pb), geometry.grow(dense_boxes))
 
 
 def row_gaps(iou: np.ndarray, ps, pc, n_ref: int, den: dict) -> np.ndarray:
@@ -118,24 +159,21 @@ def row_gaps(iou: np.ndarray, ps, pc, n_ref: int, den: dict) -> np.ndarray:
     return gap
 
 
-def nms_overlap(pb, pc, den: dict) -> float:
+def nms_overlap(pb, pc, den: dict, geometry) -> float:
     """The largest IoU between two returned rows of one class, neither
     touching the image's edge, on the canvas with the class offset added
     in float32, as the postprocess compares them."""
-    inside = _inside(pb, den["size"])
+    inside = geometry.inside(pb, den["size"])
     b, c = pb[inside], pc[inside]
     if len(b) < 2:
         return 0.0
-    ratio, pad_x, pad_y = den["letterbox"]
-    canvas = (b * np.float32(ratio)
-              + np.array([pad_x, pad_y, pad_x, pad_y], np.float32))
-    offset = canvas + (c.astype(np.float32) * CLASS_OFFSET)[:, None]
-    iou = _iou(offset.astype(np.float32), offset.astype(np.float32))
+    offset = geometry.on_canvas(b, c, den["letterbox"])
+    iou = geometry.iou(offset, offset)
     same = (c[:, None] == c[None, :]) & ~np.eye(len(b), dtype=bool)
     return float(iou[same].max()) if same.any() else 0.0
 
 
-def candidate_cover(pb, ps, pc, den: dict, *, cut: float,
+def candidate_cover(pb, ps, pc, den: dict, geometry, *, cut: float,
                     multi_label: bool) -> tuple[np.ndarray, np.ndarray]:
     """The reference's candidates scoring above `cut` that clipping left
     untouched: (their score − cut, the largest IoU of a returned row of
@@ -152,24 +190,25 @@ def candidate_cover(pb, ps, pc, den: dict, *, cut: float,
         n = np.nonzero(best > cut)[0]
         best = best[n]
         ok = scores[n] >= best[:, None] - MARGIN
-    inside = _inside(den["boxes"][n], den["size"])
+    inside = geometry.inside(den["boxes"][n], den["size"])
     n, ok, best = n[inside], ok[inside], best[inside]
     if not len(n) or not len(ps):
         return best - cut, np.zeros(len(n))
-    iou = _iou(den["boxes"][n], pb)
+    iou = geometry.iou(den["boxes"][n], pb)
     iou[~ok[:, pc]] = 0.0
     return best - cut, iou.max(axis=1)
 
 
 def detect_numbers(program: list, reference: list, dense: list, *,
-                   nms_iou: float, conf_thres: float, max_dets: int,
-                   multi_label: bool) -> dict:
-    """program: [(boxes (K, 4), scores (K,), classes (K,))] an image, in
+                   geometry, nms_iou: float, conf_thres: float,
+                   max_dets: int, multi_label: bool) -> dict:
+    """program: [(boxes (K, ...), scores (K,), classes (K,))] an image, in
     image pixels; reference: [{"boxes", "scores", "classes"}] an image,
-    the reference's detections; dense: [{"boxes" (N, 4) in image pixels,
-    "scores" (N, C), "size" (w, h), "letterbox" (ratio, pad_x, pad_y)}]
-    an image, the reference's every box and class score before the
-    postprocess."""
+    the reference's detections; dense: [{"boxes" (N, ...) in image
+    pixels, "scores" (N, C), "size" (w, h), "letterbox" (ratio, pad_x,
+    pad_y)}] an image, the reference's every box and class score before
+    the postprocess. Boxes are rows of the family's `geometry`
+    (`AxisAligned` lists its parts)."""
     out = dict.fromkeys(("rank_gap", "count_gap", "unmatched", "score_gap",
                          "wrong_rows", "nms_overlap", "uncovered"), 0.0)
     due = uncovered = 0
@@ -183,21 +222,22 @@ def detect_numbers(program: list, reference: list, dense: list, *,
             out["rank_gap"] = max(out["rank_gap"], float(np.abs(a - b).max()))
         out["count_gap"] = max(out["count_gap"],
                                abs(len(ps) - len(rs)) / max(len(rs), 1))
-        iou = _match(pb, den["boxes"])
+        iou = _match(pb, den["boxes"], geometry)
         gap = row_gaps(iou, ps, pc, len(rs), den)
         if len(ps):
             out["unmatched"] = max(out["unmatched"], float(
                 (iou.max(axis=1) < MATCH_IOU).mean()))
         counted = np.ones(len(gap), bool)
-        counted[:len(ps)] = _inside(pb, den["size"])
+        counted[:len(ps)] = geometry.inside(pb, den["size"])
         if len(gap):
             out["score_gap"] = max(out["score_gap"], float(np.median(gap)))
         if counted.any():
             out["wrong_rows"] = max(out["wrong_rows"], float(
                 (gap[counted] > ROW_TOL).mean()))
-        out["nms_overlap"] = max(out["nms_overlap"], nms_overlap(pb, pc, den))
+        out["nms_overlap"] = max(out["nms_overlap"],
+                                 nms_overlap(pb, pc, den, geometry))
         cut = float(ps.min()) if len(ps) >= max_dets else conf_thres
-        above, cover = candidate_cover(pb, ps, pc, den, cut=cut,
+        above, cover = candidate_cover(pb, ps, pc, den, geometry, cut=cut,
                                        multi_label=multi_label)
         due += int((above >= MARGIN).sum())
         uncovered += int(((above >= MARGIN) & (cover < COVER_IOU)).sum())

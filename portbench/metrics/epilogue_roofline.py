@@ -10,10 +10,12 @@ blocks the fused bottleneck computes whole). Each reads its N outputs
 and writes N, and reads N more where a residual joins (Darknet's
 residual blocks, a bottleneck's last conv), in the configuration's
 dtype, over the HBM rate. The calls a forward are the convs counted."""
+from types import ModuleType
+
 import torch
 
 from portbench import yardstick
-from portbench.reference import darknet, layers, models, resnet, yolov3
+from portbench.reference import darknet, layers, resnet, yolov3
 
 NAME, UNIT, KIND, SOURCE = "epilogue_roofline", "%", "detect", "device_trace"
 LAYER, MOVES = "kernels", "detect_img_s"
@@ -26,13 +28,13 @@ def _fused(stage: int, block: int) -> bool:
     return stage == 0 or (stage == 1 and block >= 1)
 
 
-def epilogue_convs(family: str, num_classes: int, batch: int,
+def epilogue_convs(family: ModuleType, num_classes: int, batch: int,
                    size: int) -> list[tuple[int, bool]]:
     """(output elements, whether a residual joins) of each conv whose
-    epilogue the kernel computes, from a forward of the reference on the
-    meta device."""
+    epilogue the kernel computes, from a forward of `family`'s reference
+    on the meta device."""
     with torch.device("meta"):
-        model = models.build(family, num_classes).eval()
+        model = family.build(num_classes).eval()
     residual, skip = set(), set()
     for m in model.modules():
         if isinstance(m, darknet.ResBlock):
@@ -77,7 +79,7 @@ def read(ctx):
     if not launches:
         return None
     cfg = ctx["config"]
-    convs = epilogue_convs(cfg["family"], cfg["num_classes"], ctx["batch"],
+    convs = epilogue_convs(ctx["family"], cfg["num_classes"], ctx["batch"],
                            cfg["input_size"])
     forward_ms = secs * 1e3 * len(convs) / launches
     return 100.0 * bound_ms(convs, ELEM_BYTES[cfg["dtype"]]) / forward_ms

@@ -12,6 +12,6 @@ def read(ctx):
     if ctx["device"].type != "cuda":
         return None
     cfg = ctx["config"]
-    flops = yardstick.flops_per_image(cfg["family"], cfg["num_classes"],
+    flops = yardstick.flops_per_image(ctx["family"], cfg["num_classes"],
                                       cfg["input_size"], train=True)
     return 100.0 * flops * ctx["rate"] / yardstick.BF16_FLOPS

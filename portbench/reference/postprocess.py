@@ -87,6 +87,13 @@ def postprocess(dense: dict, *, multi_label: bool, conf_thres: float,
             "candidate_boxes": sel_boxes, "candidate_classes": classes}
 
 
+def configured(dense: dict, cfg: dict) -> dict:
+    """`postprocess` with a configuration's settings."""
+    return postprocess(dense, multi_label=cfg["multi_label"],
+                       conf_thres=cfg["conf_thres"], iou_thres=cfg["nms_iou"],
+                       pre_nms=cfg["pre_nms"], max_dets=cfg["max_dets"])
+
+
 def to_original(boxes: np.ndarray, info) -> np.ndarray:
     """Network-pixel xyxy → original-image pixels, clipped (`info` has
     ratio, pad_x, pad_y, ori_w, ori_h)."""
@@ -98,9 +105,9 @@ def to_original(boxes: np.ndarray, info) -> np.ndarray:
     return out
 
 
-def detections(out: dict, infos) -> list[dict]:
-    """Padded rows → one dict an image (boxes in original pixels, scores,
-    classes), valid rows only."""
+def detections(out: dict, infos, to_original) -> list[dict]:
+    """Padded rows → one dict an image (boxes in original pixels by
+    `to_original(boxes, info)`, scores, classes), valid rows only."""
     host = {k: out[k].cpu().numpy() for k in ("boxes", "scores", "classes",
                                               "valid")}
     dets = []

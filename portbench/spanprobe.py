@@ -162,10 +162,10 @@ def cost(cell: str, seed: int, seconds: float, device, k: int) -> dict:
     from mydetection_tpu_torch.utils import profiling
 
     loaded = cells.load_cell(cell)
-    cfg, mix = loaded["config"], loaded["traffic"]
+    cfg, mix, family = loaded["config"], loaded["traffic"], loaded["family"]
     kind = mix["kind"]
     if kind == "detect":
-        pool, _, det = harness.detect_setup(cfg, mix, seed, device)
+        pool, _, det = harness.detect_setup(family, cfg, mix, seed, device)
         infos = [harness._program_infos(b["infos"]) for b in pool]
         batch = pool[0]["canvases"].shape[0]
 
@@ -174,7 +174,7 @@ def cost(cell: str, seed: int, seconds: float, device, k: int) -> dict:
             det.detect_prepared(pool[b]["canvases"], infos[b],
                                 conf_thres=cfg["conf_thres"])
     else:
-        pool, _, step = harness.train_setup(cfg, mix, seed, device)
+        pool, _, step = harness.train_setup(family, cfg, mix, seed, device)
         recipe = cfg["train"]
         batch = pool[0]["images"].shape[0]
 

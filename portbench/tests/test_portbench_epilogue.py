@@ -21,7 +21,7 @@ SPEC.loader.exec_module(METRIC)
 ])
 def test_counts_the_convs_the_kernel_takes(family, size, calls, elements,
                                            residual):
-    convs = METRIC.epilogue_convs(family, 80, 1, size)
+    convs = METRIC.epilogue_convs(cells.family(family), 80, 1, size)
     assert len(convs) == calls
     assert sum(n for n, _ in convs) == elements
     assert sum(n for n, joins in convs if joins) == residual
@@ -34,10 +34,11 @@ def test_bound_by_hand():
 
 
 def test_reads_the_kernel_time_a_forward():
-    convs = METRIC.epilogue_convs("yolov3", 80, 2, 64)
+    yolov3 = cells.family("yolov3")
+    convs = METRIC.epilogue_convs(yolov3, 80, 2, 64)
     cfg = {"family": "yolov3", "num_classes": 80, "input_size": 64,
            "dtype": "bfloat16"}
-    ctx = {"config": cfg, "batch": 2, "trace": {"kernels": {
+    ctx = {"config": cfg, "family": yolov3, "batch": 2, "trace": {"kernels": {
         "void (anonymous namespace)::conv_epilogue_kernel<...>":
             (0.003, 2 * len(convs)),
         "void at::native::vectorized_elementwise_kernel": (1.0, 10)}}}
@@ -45,4 +46,4 @@ def test_reads_the_kernel_time_a_forward():
     assert METRIC.read(ctx) == pytest.approx(want)
     ctx["trace"]["kernels"].pop(next(iter(ctx["trace"]["kernels"])))
     assert METRIC.read(ctx) is None
-    assert METRIC.read({"config": cfg, "batch": 2}) is None
+    assert METRIC.read({"config": cfg, "family": yolov3, "batch": 2}) is None

@@ -168,8 +168,14 @@ def test_a_dry_run_loads_no_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import portbench.reference.models, portbench.reference.postprocess,"
-            " portbench.weights, portbench.yardstick, portbench.judge")
+    families = sorted(p.stem for p in
+                      (ROOT / "portbench" / "families").glob("*.py"))
+    assert {"yolov3", "fcos"} <= set(families)
+    code = ("import portbench.reference.postprocess, portbench.weights,"
+            " portbench.yardstick, portbench.judge\n"
+            "from portbench import cells\n"
+            f"for name in {families!r}:\n"
+            "    cells.family(name)")
     top = _modules_after(code)
     assert not top & {"jax", "jaxlib", "flax", "mydetection_tpu",
                       "mydetection_tpu_torch"}

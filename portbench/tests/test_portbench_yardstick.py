@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import judge, yardstick
+from portbench import cells, judge, yardstick
 
 
 def test_least_time_takes_the_slower_of_bytes_and_operations():
@@ -63,11 +63,12 @@ def test_greedy_pairs_by_hand():
 
 def test_flops_an_image_match_the_published_counts():
     # YOLOv3-416: 65.86 GFLOPs an image (2 per multiply-add)
-    assert yardstick.flops_per_image("yolov3", 80, 416, train=False) / 1e9 \
+    yolov3 = cells.family("yolov3")
+    assert yardstick.flops_per_image(yolov3, 80, 416, train=False) / 1e9 \
         == pytest.approx(65.864, abs=1e-3)
     # a train step: forward, then two backward products a conv
-    train = yardstick.flops_per_image("yolov3", 80, 64, train=True)
-    fwd = yardstick.flops_per_image("yolov3", 80, 64, train=False)
+    train = yardstick.flops_per_image(yolov3, 80, 64, train=True)
+    fwd = yardstick.flops_per_image(yolov3, 80, 64, train=False)
     assert 2.9 < train / fwd < 3.0
 
 
@@ -138,7 +139,8 @@ def test_detect_numbers_by_hand():
     boxes = [[10, 10, 30, 30], [12, 10, 32, 30], [60, 60, 80, 80]]
     scores = [[0.9, 0.0], [0.8, 0.0], [0.0, 0.7]]
     ref = {"scores": np.array([0.9, 0.7], np.float32)}
-    kw = dict(nms_iou=0.45, conf_thres=0.05, max_dets=2, multi_label=True)
+    kw = dict(geometry=judge.AxisAligned, nms_iou=0.45, conf_thres=0.05,
+              max_dets=2, multi_label=True)
     # NMS kept the first box and its class-1 neighbour: every number clean
     good, dense = _image([boxes[0], boxes[2]], [0, 1], [0.9, 0.7],
                          boxes, scores)

@@ -27,12 +27,12 @@ that ties, not arithmetic, decide the detections.
 from __future__ import annotations
 
 import math
+from types import ModuleType
 
 import torch
 from torch import nn
 
 from portbench import seeds
-from portbench.reference import models
 from portbench.reference.darknet import ResBlock
 from portbench.reference.layers import BatchNorm
 from portbench.reference.resnet import Bottleneck
@@ -41,16 +41,17 @@ CALIB_IMAGES = 4
 RESIDUAL_GAIN = 0.2
 
 
-def reference_model(family: str, num_classes: int, seed: int, device,
+def reference_model(family: ModuleType, num_classes: int, seed: int, device,
                     calib_images: torch.Tensor, *,
                     head_init: bool = False) -> nn.Module:
-    """The float32 reference on `device` with the seed's weights, BN
+    """The float32 reference of `family` (families/<family>.py) on
+    `device` with the seed's weights, BN
     calibrated on `calib_images` (uint8 NHWC), in eval mode. With
     `head_init` the class logits' conv takes its published init too
     (`init_std`, `init_bias`: N(0, 0.01) and the focal prior), as a
     training run starts."""
     with torch.device(device):
-        model = models.build(family, num_classes)
+        model = family.build(num_classes)
     convs = [m for m in model.modules() if isinstance(m, nn.Conv2d)]
     gen = seeds.torch_gen(seed, "weights", device)
     with torch.no_grad():

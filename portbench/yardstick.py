@@ -9,11 +9,12 @@ own candidates, the FLOPs from the reference model.
 
 from __future__ import annotations
 
+from types import ModuleType
+
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench.reference import models
 from portbench.reference.boxes import pairwise_iou
 
 # NVIDIA H100 SXM data sheet, dense rates (700 W)
@@ -118,13 +119,13 @@ def bottleneck_bound_ms(blocks) -> float:
     return total
 
 
-def flops_per_image(family: str, num_classes: int, size: int, *,
+def flops_per_image(family: ModuleType, num_classes: int, size: int, *,
                     train: bool, batch: int = 2) -> float:
-    """Convolution and matmul FLOPs an image of the reference model,
-    counted by FlopCounterMode on the meta device; `train` counts the
-    loss's forward and the backward too."""
+    """Convolution and matmul FLOPs an image of `family`'s reference model
+    (families/<family>.py), counted by FlopCounterMode on the meta
+    device; `train` counts the loss's forward and the backward too."""
     with torch.device("meta"):
-        model = models.build(family, num_classes)
+        model = family.build(num_classes)
         images = torch.zeros((batch, size, size, 3), dtype=torch.uint8)
         with FlopCounterMode(display=False) as counter:
             if train:
@@ -133,8 +134,7 @@ def flops_per_image(family: str, num_classes: int, size: int, *,
                 boxes = torch.full((batch, m, 4), size / 4.0)
                 classes = torch.zeros((batch, m), dtype=torch.int64)
                 valid = torch.ones((batch, m), dtype=torch.bool)
-                terms = models.loss(model, family, images, boxes, classes,
-                                    valid)
+                terms = family.loss(model, images, boxes, classes, valid)
                 terms["total"].backward()
             else:
                 with torch.no_grad():
